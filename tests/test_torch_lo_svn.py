@@ -1,0 +1,167 @@
+"""The lo_svn slice as a whole, port against reference, on the CPU.
+
+(a) One packed keyframe step (projection, deskew, map + RegMap build, stencil
+    covariances, SVN with the plane-to-plane polish, ring insert) from the
+    same ring state, with the reference's particle draws injected.
+(b) ``LoSvnApp.run_replay`` of both packages on a 5-sweep skewed replay
+    with deskew and the default polish; the published pose does not depend
+    on the draws (the polish starts at the prior), so the two apps draw
+    independently.
+
+Tolerances: rotation 1e-4 rad, iteration counts equal, covariance
+diagonal rtol 1e-2 (sample covariance of a few particles), and published
+translation 5e-4 m (measured: 8e-5 m at most on this replay). Translation
+is held looser than 1e-4 m for one reason: a line-like voxel, whose two
+minor eigenvalues both sit on the 0.01 * lambda_max floor, has no defined
+plane normal, so its plane-regularized covariance (the polish target) is
+set by float rounding of the map build (the reference's compiler fuses
+multiply-adds into FMAs, PyTorch on the CPU does not). On sparse maps that
+moves the polished pose by up to a millimeter in either package.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slamtpu.apps import LoSvnApp as JApp
+from slamtpu.apps import lo_svn as jlo
+from slamtpu.ins.imu_config import ImuConfig as JImu
+from slamtpu.lidar.ouster import LidarParams as JLidar
+from slamtpu.lidar.project import pack_frame
+from slamtpu.runtime import config as jconfig
+from slamtpu_torch import interop
+from slamtpu_torch.apps import lo_svn as tlo
+from slamtpu_torch.apps.common import ate_rmse, np_between
+from slamtpu_torch.core.se3 import Pose3
+from slamtpu_torch.ins.imu_config import ImuConfig as TImu
+from slamtpu_torch.lidar.ouster import LidarParams as TLidar
+from slamtpu_torch.lidar.ouster import synthetic_os2_metadata
+from slamtpu_torch.ndt.regmap import empty_regmap
+from slamtpu_torch.runtime import config as tconfig
+from tests.simulator import simulate_replay, small_meta
+
+torch.set_num_threads(1)
+N_SWEEPS = 5
+REGISTER = dict(
+    method="SVNNDT", ndt_resolution=2.0,
+    # float32 resolution: the reference builds its map in float32, as on its
+    # accelerator, instead of widening to float64 under the tests' x64 mode
+    svn_resolution=np.float32(2.0),
+    svn_particles=6, svn_max_iterations=15, svn_kernel_h=1.0, svn_step_size=1.0,
+    map_capacity=1 << 14, min_points_per_voxel=6, keyframe_window=3,
+)
+
+
+def configs():
+    lidar = dict(channel_stride=1, range_filter=(0.5, 150.0))
+    jcfg = jconfig.PipelineConfig(meta=small_meta(cols=256), lidar=JLidar(**lidar), imu=JImu(),
+                                  register=jconfig.RegisterConfig(**REGISTER), deskew=True)
+    tcfg = tconfig.PipelineConfig(
+        meta=synthetic_os2_metadata(columns_per_frame=256, pixels_per_column=32, columns_per_packet=16),
+        lidar=TLidar(**lidar), imu=TImu(), register=tconfig.RegisterConfig(**REGISTER), deskew=True,
+    )
+    return jcfg, tcfg
+
+
+@pytest.fixture(scope="module")
+def replay(tmp_path_factory):
+    jcfg, tcfg = configs()
+    path = str(tmp_path_factory.mktemp("lo_svn") / "skewed.rpl")
+    gt = simulate_replay(path, jcfg.meta, jcfg.lidar, n_sweeps=N_SWEEPS, skewed=True)
+    return path, gt, jcfg, tcfg
+
+
+def _assert_pose_close(t_rot, t_trans, j_rot, j_trans, atol_m=5e-4, atol_rad=1e-4):
+    np.testing.assert_allclose(np.asarray(t_trans, np.float64), np.asarray(j_trans, np.float64), atol=atol_m)
+    dR = np.asarray(j_rot, np.float64).T @ np.asarray(t_rot, np.float64)
+    # small angle from the skew part (arccos of the trace cannot resolve
+    # 1e-4 rad between float32 rotation matrices)
+    W = 0.5 * (dR - dR.T)
+    angle = np.linalg.norm([W[2, 1], W[0, 2], W[1, 0]])
+    assert angle < atol_rad, angle
+
+
+def test_one_keyframe_step_matches(replay):
+    path, _gt, jcfg, tcfg = replay
+    japp = JApp(jcfg)
+    frames = iter(japp.ingest.synced_frames(path))
+    japp.process(next(frames))  # seeds the ring with the first sweep
+    synced = next(frames)
+    ref = japp._ref_lla
+    ins_pose = jlo.ins_pose_ned(synced.ins[-1], ref)
+    pose_s, pose_e = japp._deskew_interval_poses(synced)
+    origin = np.array(japp._origin, np.float32)
+    prior = [np.asarray(p, np.float32) for p in (ins_pose.rot, ins_pose.trans)]
+    ps = [np.asarray(p, np.float32) for p in (pose_s.rot, pose_s.trans)]
+    pe = [np.asarray(p, np.float32) for p in (pose_e.rot, pose_e.trans)]
+    flat = np.concatenate([prior[0].ravel(), prior[1], origin, [1.0, 1.0],
+                           ps[0].ravel(), ps[1], pe[0].ravel(), pe[1]]).astype(np.float32)
+    fr = synced.scan
+    packed = pack_frame(fr.ranges_m, fr.reflectivity, fr.col_timestamp_s, fr.col_valid,
+                        signal=fr.signal, nir=fr.nir)
+    kf_points0 = np.array(japp._kf_points)
+    kf_mask0 = np.array(japp._kf_mask)
+    head = japp._kf_head
+    key = japp._key
+    reg = jcfg.register
+    grid = tuple(reg.reg_grid_shape)
+    scan_grid = (jcfg.meta.columns_per_frame, japp.ingest.luts.subset_channels)
+    jp, jm, _key, scalars, jreg = jlo._lo_svn_step_packed(
+        jnp.asarray(kf_points0), jnp.asarray(kf_mask0), jnp.asarray(packed), japp.ingest._dir,
+        japp.ingest._off, jnp.asarray(flat), jnp.int32(head), key, japp._cadence.regmap,
+        japp.svn_cfg, reg.map_capacity, reg.min_points_per_voxel, grid, True, scan_grid,
+        japp.ingest.filters, True, None,
+    )
+    sc = np.asarray(scalars, np.float64)
+    K = japp.svn_cfg.num_particles
+    noise = np.array(jax.random.normal(jax.random.split(key)[1], (K, 6), dtype=jnp.float32))
+
+    tapp = tlo.LoSvnApp(tcfg, "cpu")
+    kf_points, kf_mask = torch.tensor(kf_points0), torch.tensor(kf_mask0)  # copies: updated in place
+    regmap, res = tlo._lo_svn_step_packed(
+        kf_points, kf_mask, torch.as_tensor(packed), tapp.ingest.dir_lut, tapp.ingest.off_lut,
+        interop.pose_from_numpy(*prior), torch.as_tensor(origin), True, True,
+        interop.pose_from_numpy(*ps), interop.pose_from_numpy(*pe), head, torch.as_tensor(noise),
+        empty_regmap(reg.map_capacity, grid, "cpu", with_aux=True), tapp.svn_cfg,
+        reg.map_capacity, reg.min_points_per_voxel, grid, True, scan_grid, tapp.ingest.filters,
+        True, None,
+    )
+    _assert_pose_close(res.pose.rot.numpy(), res.pose.trans.numpy(), sc[0:9].reshape(3, 3), sc[9:12])
+    assert int(res.iterations) == int(sc[48]) and bool(res.converged) == bool(sc[49] > 0.5)
+    assert int(res.n_voxels) == int(sc[50]) > 50
+    assert int(res.num_points) == int(sc[52])
+    # the polish score sums the Mahalanobis terms of every pair, so the
+    # line-like voxels above move it by a few tenths of a percent
+    np.testing.assert_allclose(float(res.score), sc[51], rtol=1e-2)
+    np.testing.assert_allclose(np.diag(res.covariance.numpy()), np.diag(sc[12:48].reshape(6, 6)), rtol=1e-2)
+    assert int(regmap.overflow) == int(jreg.overflow)
+    # the ring: the new cloud at the INS anchor in slot ``head``, the rest
+    # untouched (deskewed points up to ~100 m: per-point Expmap ulps, 1e-4 m)
+    np.testing.assert_array_equal(kf_mask.numpy(), np.asarray(jm))
+    np.testing.assert_allclose(kf_points.numpy(), np.asarray(jp), atol=1e-4)
+    assert not np.array_equal(kf_points.numpy()[head], kf_points0[head])
+
+
+def test_run_replay_matches_reference(replay):
+    path, gt, jcfg, tcfg = replay
+    jt = JApp(jcfg).run_replay(path)
+    tapp = tlo.LoSvnApp(tcfg, "cpu")
+    tt = tapp.run_replay(path)
+    assert len(tt) == len(jt) == N_SWEEPS - 1
+    for a, b in zip(jt, tt):
+        assert a.frame_id == b.frame_id
+        _assert_pose_close(b.pose.rot, b.pose.trans, a.pose.rot, a.pose.trans)
+        np.testing.assert_array_equal(np.asarray(b.ins_pose.trans), np.asarray(a.ins_pose.trans))
+    # both ATEs against ground truth (relative to the first keyframe)
+    gtp = [Pose3(np.asarray(R), np.asarray(p)) for R, p in gt[1:]]
+    ate = {}
+    for name, traj in (("reference", jt), ("port", tt)):
+        ate[name] = ate_rmse([np_between(traj[0].pose, e.pose) for e in traj],
+                             [np_between(gtp[0], g) for g in gtp[: len(traj)]])
+    print(f"ATE reference {ate['reference']:.6f} m, port {ate['port']:.6f} m")
+    assert abs(ate["port"] - ate["reference"]) < 5e-4
+    assert ate["reference"] < 0.01  # the fixture registers (the INS prior is exact)
+    recs = tapp.stats.records
+    assert len(recs) == len(tt) and all(np.isfinite(r.lidar_sigma).all() for r in recs)
+    assert set(tapp.device_timer.summary()) >= {"project", "deskew", "map_rebuild", "svn", "ring_insert"}
