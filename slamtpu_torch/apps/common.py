@@ -82,8 +82,9 @@ def ins_pose_ned(nav: NavFrame, ref_lla: np.ndarray) -> Pose3:
 
 
 def pose_to_device(pose: Pose3, device, dtype=torch.float32) -> Pose3:
-    return Pose3(torch.as_tensor(np.asarray(pose.rot), dtype=dtype, device=device),
-                 torch.as_tensor(np.asarray(pose.trans), dtype=dtype, device=device))
+    """A host pose on ``device`` (through ``to_device``: no wait for the
+    stream on a CUDA device)."""
+    return Pose3(*(to_device(np.asarray(a), torch.device(device)).to(dtype) for a in pose))
 
 
 @dataclasses.dataclass

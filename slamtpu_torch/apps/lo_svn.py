@@ -11,7 +11,6 @@ so the next sweep's decode overlaps the device work.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import logging
 import time
@@ -30,6 +29,7 @@ from ..ndt.regmap import build_regmap
 from ..ndt.svn import SvnConfig, svn_align_reg
 from ..runtime.config import PipelineConfig
 from ..runtime.device_timer import DeviceStageTimer
+from ..runtime.device_timer import span as _span
 from ..runtime.stats import KeyFrameStats, StageTimer, StatsArchive
 from .common import (IngestPipeline, MapRebuildCadence, TrajectoryEntry, deskew_interval_poses,
                      ins_pose_ned, maybe_deskew, np_pose7, pose_to_device, to_device)
@@ -47,10 +47,6 @@ class KeyframeResult(NamedTuple):
     n_voxels: torch.Tensor  # () int32 valid voxels of the registration map
     score: torch.Tensor  # ()
     num_points: Optional[torch.Tensor] = None  # () int32 kept points of the sweep
-
-
-def _span(timer, name):
-    return timer.span(name) if timer is not None else contextlib.nullcontext()
 
 
 def _lo_svn_core(

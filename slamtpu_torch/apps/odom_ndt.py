@@ -1,0 +1,427 @@
+"""Newton-NDT odometry with the pose-window smoother, the reference's plain
+``pipeline`` executable (port of slamtpu/apps/odom_ndt.py).
+
+Per keyframe (run/pipeline.cpp:432-824): the target map is the previous
+keyframe cloud at its optimized pose; Newton registration (NDT, or
+isotropic VGICP) from the INS-relative seed; the deviation gate against
+the seed and the SE(3) blend; the LiDAR covariance from the Hessian with
+its eigenvalue and sigma floors; the INS prior with GPS-denial trust-gain
+sigma scaling; the window smoother and the newest state's marginal
+covariance. The host ships one (36,) vector in and reads one (100,) vector
+out per keyframe, two keyframes late, so the fetch overlaps the next
+dispatch.
+
+Engines ported: ``NDT_OMP`` (``newton_align_fused`` over the NDT pair
+kernel) and isotropic ``GICP`` (``gicp_align_fused`` over the VGICP pair
+kernel), both on the RegMap layout. The others raise NotImplementedError
+(ROADMAP A, item 11): SVNNDT, NDT_OMP_MULTIRES, anisotropic GICP, the
+KDTREE and DIRECT1 search modes, the sorted-key path (use_regmap=False)
+and loop closure.
+
+Dtypes: registration runs in float32. The window carry (poses, priors,
+between factors, sqrt-information) is float64 on every device: the
+smoother is a 48x48 problem and Hopper has float64 units. (The reference
+keeps it in float64 under x64, as its tests run, and in float32 on the
+TPU.) The window fill count ``n`` is a host integer: it advances by one per
+keyframe up to the window size, so no device value decides it.
+
+Host syncs per keyframe in this module: one per Newton outer iteration
+(the loop's exit test), one in ``torch.linalg.eigh`` (the LiDAR covariance
+floor), and the lagged read of the result vector and the point count. The
+map and RegMap build adds its own (``ndt/regmap.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..core import se3
+from ..core.se3 import Pose3
+from ..fusion import robust
+from ..fusion.graph import sqrt_info_from_cov
+from ..fusion.smoother import optimize_pose_window, pose_marginal_covariance
+from ..mapping import gaussian_map
+from ..ndt.fused_math import newton_align_fused
+from ..ndt.gicp import gicp_map
+from ..ndt.newton import NewtonConfig, NewtonResult
+from ..ndt.regmap import build_regmap
+from ..runtime.config import PipelineConfig
+from ..runtime.device_timer import DeviceStageTimer
+from ..runtime.device_timer import span as _span
+from ..runtime.stats import KeyFrameStats, StageTimer, StatsArchive
+from .common import (IngestPipeline, TrajectoryEntry, ins_pose_ned, maybe_deskew, np_pose7,
+                     to_device)
+
+log = logging.getLogger("slamtpu_torch.odom_ndt")
+
+KNOWN_METHODS = ("NDT_OMP", "SVNNDT", "GICP", "NDT_OMP_MULTIRES")
+
+
+def _register_step(
+    target_points,  # (M*N, 3) previous keyframe cloud(s), world frame
+    target_mask,
+    new_points,  # (N, 3) body frame
+    new_mask,
+    init_guess: Pose3,  # float32
+    origin,  # (3,) float32 map origin
+    cfg: NewtonConfig,
+    capacity: int,
+    min_points: int,
+    grid_shape: tuple,
+    method: str = "NDT_OMP",
+    inner_iters: int = 2,
+    final_eval: bool = False,
+    timer=None,
+) -> NewtonResult:
+    """Build the target map and register by the configured engine (the
+    reference's registration_method switch, run/pipeline.cpp:464-481).
+    ``final_eval`` is newton_align_fused's contract switch: the app keeps
+    the reference's default (score and Hessian of the last applied step)."""
+    with _span(timer, "map_build"):
+        gmap = gaussian_map.build_map(target_points, target_mask, origin, cfg.resolution,
+                                      capacity=capacity, min_points_per_voxel=min_points)
+        if method == "GICP":
+            gmap = gicp_map(gmap)
+        regmap = build_regmap(gmap, grid_shape=grid_shape)
+    with _span(timer, "newton"):
+        return newton_align_fused(new_points, new_mask, regmap, init_guess, cfg, grid_shape,
+                                  inner_iters=inner_iters, final_eval=final_eval,
+                                  _gicp=method == "GICP")
+
+
+def _odom_fused_step(
+    carry: dict,  # window ring + previous cloud(s); see OdomNdtApp._start
+    new_points,  # (N, 3) body frame
+    new_mask,
+    flat,  # (36,) float64 on the device: [ins_rot(9), ins_trans(3),
+    #   scaled_sigma(6), origin(3), lidar sigma floor (rot, trans),
+    #   use_ins_rel flag(1), ins_rel rot(9) + trans(3)]
+    cfg: NewtonConfig,
+    capacity: int,
+    min_points: int,
+    grid_shape: tuple,
+    max_td: float,
+    max_rd: float,
+    method: str = "NDT_OMP",
+    inner_iters: int = 2,
+    window: int = 6,
+    smoother_iters: int = 4,
+    tgt_window: int = 1,  # RegisterConfig.odom_target_window
+    tgt_exclude: int = 0,  # RegisterConfig.odom_target_exclude
+    final_eval: bool = False,  # see _register_step
+    timer=None,
+):
+    """One complete odometry keyframe: (new carry, (100,) result vector
+    [pose rot(9), trans(3), marginal cov(36), lidar cov(36), rel rot(9),
+    trans(3), score, iterations, converged, blend weight])."""
+    W, M = window, tgt_window
+    cd = carry["win_trans"].dtype
+    f32 = torch.float32
+    ins_pose = Pose3(flat[0:9].reshape(3, 3).to(cd), flat[9:12].to(cd))
+    scaled_sigma = torch.clamp(flat[12:18].to(cd), min=1e-6)
+    origin = flat[18:21].to(f32)
+
+    n = carry["n"]  # states currently in the window (>= 1)
+    idx_prev = n - 1
+    win_rot, win_trans = carry["win_rot"], carry["win_trans"]
+    prev = Pose3(win_rot[idx_prev], win_trans[idx_prev])
+    pp = Pose3(win_rot[max(idx_prev - 1, 0)], win_trans[max(idx_prev - 1, 0)])
+    prev32, pp32 = se3.cast(prev, f32), se3.cast(pp, f32)
+    with _span(timer, "target"):
+        if M == 1:
+            # target = previous keyframe cloud at its optimized pose (:552-557)
+            target = se3.transform_points(prev32, carry["prev_points"][0])
+            target_mask = carry["prev_mask"][0]
+        else:
+            # the last M clouds at their optimized window poses; ring slot
+            # M-1 is the newest (state idx_prev), slot j holds state
+            # idx_prev - (M-1-j), invalid during fill-up
+            state_of_slot = [idx_prev - (M - 1) + j for j in range(M)]
+            sidx = [min(max(s, 0), W - 1) for s in state_of_slot]
+            Rm = torch.stack([win_rot[i] for i in sidx]).to(f32)
+            tm = torch.stack([win_trans[i] for i in sidx]).to(f32)
+            world = torch.einsum("mij,mnj->mni", Rm, carry["prev_points"]) + tm[:, None, :]
+            valid = [s >= 0 for s in state_of_slot]
+            if tgt_exclude > 0:  # drop the newest E clouds, keeping at least one
+                e_eff = min(tgt_exclude, max(sum(valid) - 1, 0))
+                valid = [v and (M - 1 - j) >= e_eff for j, v in enumerate(valid)]
+            target = world.reshape(-1, 3)
+            target_mask = carry["prev_mask"].clone()
+            for j, v in enumerate(valid):
+                if not v:
+                    target_mask[j] = False
+            target_mask = target_mask.reshape(-1)
+        # seed: constant velocity once two states exist, replaced by the
+        # INS relative motion since the previous keyframe when flagged
+        guess = robust.constant_velocity_predict(pp32, prev32) if n >= 2 else prev32
+        rel_ins = Pose3(flat[24:33].reshape(3, 3).to(f32), flat[33:36].to(f32))
+        guess = se3.where(flat[23] > 0.5, se3.compose(prev32, rel_ins), guess)
+    res = _register_step(target, target_mask, new_points, new_mask, guess, origin, cfg, capacity,
+                         min_points, grid_shape, method, inner_iters, final_eval, timer)
+    with _span(timer, "covariance"):
+        blended32, w = robust.deviation_gated_blend(guess, res.pose, max_td, max_rd)
+        blended = se3.cast(blended32, cd)
+        # LiDAR covariance from the Hessian (pipeline.cpp:594-603)
+        eye6 = torch.eye(6, dtype=cd, device=flat.device)
+        lidar_cov = -torch.linalg.inv_ex(res.hessian.to(cd) + 1e-6 * eye6)[0]
+        lidar_cov = 0.5 * (lidar_cov + lidar_cov.t())
+        ev, evec = torch.linalg.eigh(lidar_cov)  # waits for the device (error check)
+        lidar_cov = (evec * torch.clamp(ev, min=1e-12)[None, :]) @ evec.t()
+        # registration-bias variance floor (RegisterConfig.lidar_*_sigma_floor)
+        floor = torch.cat([flat[21:22].expand(3), flat[22:23].expand(3)]).to(cd)
+        lidar_cov = lidar_cov + torch.diag(floor * floor)
+        fb_si_new = sqrt_info_from_cov(lidar_cov)
+        rel = se3.between(prev, blended)
+
+    with _span(timer, "smoother"):
+        # slide the window ring: roll left when full, write at idx
+        full = n >= W
+        idx = min(n, W - 1)
+
+        def roll_in(a, new_val):
+            rolled = torch.roll(a, -1, dims=0) if full else a.clone()
+            rolled[idx] = new_val.to(a.dtype)
+            return rolled
+
+        win_rot = roll_in(win_rot, blended.rot)
+        win_trans = roll_in(win_trans, blended.trans)
+        fp_rot = roll_in(carry["fp_rot"], ins_pose.rot)
+        fp_trans = roll_in(carry["fp_trans"], ins_pose.trans)
+        fp_sig = roll_in(carry["fp_sig"], scaled_sigma)
+        # edge slot e holds the between factor (e-1) -> e; idx >= 1 here
+        fb_rot = roll_in(carry["fb_rot"], rel.rot)
+        fb_trans = roll_in(carry["fb_trans"], rel.trans)
+        fb_si = roll_in(carry["fb_si"], fb_si_new)
+
+        ks = torch.arange(W, device=flat.device)
+        active = ks <= idx
+        b_active = (ks >= 1) & (ks <= idx)
+        sm = optimize_pose_window(
+            win_rot, win_trans, active, fp_rot, fp_trans, torch.diag_embed(1.0 / fp_sig),
+            fb_rot[1:], fb_trans[1:], fb_si[1:], b_active[1:], iterations=smoother_iters,
+        )
+        cov_opt = pose_marginal_covariance(sm.hessian, idx)
+
+    if M == 1:
+        prev_points, prev_mask = new_points[None], new_mask[None]
+    else:  # roll the target-cloud ring: newest at slot M-1
+        prev_points = torch.roll(carry["prev_points"], -1, dims=0)
+        prev_points[M - 1] = new_points
+        prev_mask = torch.roll(carry["prev_mask"], -1, dims=0)
+        prev_mask[M - 1] = new_mask
+    new_carry = dict(
+        win_rot=sm.rot, win_trans=sm.trans, fp_rot=fp_rot, fp_trans=fp_trans, fp_sig=fp_sig,
+        fb_rot=fb_rot, fb_trans=fb_trans, fb_si=fb_si, n=min(n + 1, W),
+        prev_points=prev_points, prev_mask=prev_mask,
+    )
+    out = torch.cat([
+        sm.rot[idx].reshape(-1), sm.trans[idx], cov_opt.reshape(-1), lidar_cov.reshape(-1),
+        rel.rot.reshape(-1), rel.trans,
+        torch.stack([res.score.to(cd), res.iterations.to(cd), res.converged.to(cd), w.to(cd)]),
+    ])
+    return new_carry, out
+
+
+@dataclasses.dataclass
+class OdomNdtApp:
+    cfg: PipelineConfig
+    device: torch.device  # where the keyframe path runs ("cuda" or "cpu")
+    window: int = 8  # smoother window size (states kept live)
+    max_trans_deviation: float = 1.0  # pipeline.cpp:454
+    max_rot_deviation: float = 0.1  # pipeline.cpp:455
+    loop_closure: bool = False
+    loop_cfg: object = None
+    method: Optional[str] = None  # None -> cfg.register.method
+    smoother_iters: int = 4  # pose-window Gauss-Newton iterations
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        reg = self.cfg.register
+        if self.method is None:
+            self.method = reg.method
+        if self.method not in KNOWN_METHODS:
+            raise ValueError(f"unknown registration method {self.method!r}; known: {KNOWN_METHODS}")
+        # the parts of the reference app this port does not carry yet
+        # (ROADMAP A, item 11): they raise instead of running something else
+        todo = "is not ported (ROADMAP A, item 11)"
+        if self.method in ("SVNNDT", "NDT_OMP_MULTIRES"):
+            raise NotImplementedError(f"the {self.method} engine {todo}")
+        if self.method == "GICP" and reg.gicp_source_cov == "anisotropic":
+            raise NotImplementedError(f"gicp_source_cov='anisotropic' {todo}")
+        if reg.search_method != "DIRECT7":
+            raise NotImplementedError(f"the {reg.search_method} search mode {todo}")
+        if not reg.use_regmap:
+            raise NotImplementedError(f"use_regmap=False (the sorted-key objective) {todo}")
+        if self.loop_closure:
+            raise NotImplementedError(f"loop_closure=True {todo}")
+        self.ingest = IngestPipeline(self.cfg, self.device)
+        self.newton_cfg = NewtonConfig(
+            resolution=reg.ndt_resolution,
+            outlier_ratio=reg.svn_outlier_ratio,
+            max_iterations=reg.ndt_max_iterations,
+            trans_eps=reg.gicp_transform_epsilon if self.method == "GICP"
+            else reg.ndt_transform_epsilon,
+            gicp_max_corr_dist=reg.gicp_corr_dist_threshold,
+        )
+        self.grid_shape = tuple(reg.reg_grid_shape)
+        # multi-viewpoint registration target, clamped to the smoother window
+        self.tgt_window = max(1, min(int(reg.odom_target_window), self.window))
+        self.tgt_exclude = max(0, min(int(reg.odom_target_exclude), self.tgt_window - 1))
+        self._trajectory: List[TrajectoryEntry] = []
+        self._stats = StatsArchive()
+        self.timer = StageTimer()  # host spans
+        self.device_timer = DeviceStageTimer(self.device)  # per-stage device spans
+        self.process_end_s: List[float] = []  # host clock as each process() returns
+        self._ref_lla: Optional[np.ndarray] = None
+        self._origin = None  # numpy (3,) float64
+        self._trust = robust.trust_gain_init_np()
+        self._carry = None  # device window state; None until the first keyframe
+        # (rot, trans) numpy float64 INS pose of the previous keyframe: the
+        # source of the INS-relative registration seed
+        self._prev_ins = None
+        self._n_keyframes = 0
+        # keyframes whose device results are still in flight; the host reads
+        # them two keyframes late, so the read overlaps the next dispatch
+        self._pending: List[tuple] = []
+
+    @property
+    def trajectory(self) -> List[TrajectoryEntry]:
+        self.flush()
+        return self._trajectory
+
+    @property
+    def stats(self) -> StatsArchive:
+        self.flush()
+        return self._stats
+
+    def run_replay(self, replay_path: str, max_keyframes: int = 10**9):
+        for synced in self.ingest.synced_frames(replay_path):
+            self.process(synced)
+            if self._n_keyframes >= max_keyframes:
+                break
+        return self.trajectory
+
+    def process(self, synced):
+        with self.timer.span("project"), self.device_timer.span("project"):
+            scan = self.ingest.project(synced)
+        nav = synced.ins[-1]
+        if self._ref_lla is None:
+            self._ref_lla = np.asarray(nav.lla)
+        with self.device_timer.span("deskew"):
+            scan = maybe_deskew(scan, synced, self._ref_lla, self.cfg.deskew)
+        ins_pose = ins_pose_ned(nav, self._ref_lla)
+        ins_sigma = np.concatenate([np.asarray(nav.sigma_rpy), np.asarray(nav.sigma_pos)])
+
+        if self._carry is None:
+            # first keyframe: INS prior only (pipeline.cpp:532-543)
+            self._origin = np.asarray(ins_pose.trans, np.float64) - 512.0 * self.newton_cfg.resolution
+            self._start(ins_pose, ins_sigma, synced, scan)
+            self.process_end_s.append(time.perf_counter())
+            return
+
+        self._origin, _shifted = gaussian_map.recenter_origin(
+            self._origin, np.asarray(ins_pose.trans), self.newton_cfg.resolution
+        )
+        # trust-gain INS prior (pipeline.cpp:637-665): host data only
+        self._trust, scale = robust.trust_gain_update_np(
+            self._trust, float(np.linalg.norm(np.asarray(nav.sigma_pos)))
+        )
+        scaled_sigma = np.maximum(ins_sigma * float(scale), 1e-6)
+        reg = self.cfg.register
+        # INS relative motion since the previous keyframe: the registration
+        # seed. Like the reference (odom_ndt.py:603) it is not gated on the
+        # GPS-denial trust or checked against the constant-velocity guess.
+        cr = np.asarray(ins_pose.rot, np.float64)
+        ct = np.asarray(ins_pose.trans, np.float64)
+        pr, pt = self._prev_ins
+        ins_rel = np.concatenate([[1.0], (pr.T @ cr).ravel(), pr.T @ (ct - pt)])
+        self._prev_ins = (cr.copy(), ct.copy())
+        flat = np.concatenate([
+            cr.ravel(), ct, scaled_sigma, np.asarray(self._origin, np.float64),
+            [reg.lidar_rot_sigma_floor, reg.lidar_trans_sigma_floor], ins_rel,
+        ]).astype(np.float64)
+        with self.timer.span("step"):
+            self._carry, out = _odom_fused_step(
+                self._carry, scan.points, scan.mask, to_device(flat, self.device), self.newton_cfg,
+                reg.map_capacity, reg.min_points_per_voxel, self.grid_shape,
+                self.max_trans_deviation, self.max_rot_deviation, method=self.method,
+                inner_iters=reg.fused_inner_iters, window=self.window,
+                smoother_iters=self.smoother_iters, tgt_window=self.tgt_window,
+                tgt_exclude=self.tgt_exclude, timer=self.device_timer,
+            )
+        self._n_keyframes += 1
+        self._pending.append((synced, scan.num_points, ins_pose, ins_sigma, scaled_sigma,
+                              self.timer.last_ms("step"), out))
+        if len(self._pending) > 2:
+            self._drain_one()
+        self.process_end_s.append(time.perf_counter())
+
+    def flush(self):
+        """Read back all in-flight keyframe results."""
+        while self._pending:
+            self._drain_one()
+        self.device_timer.collect()
+
+    def _drain_one(self):
+        synced, num_points, ins_pose, ins_sigma, scaled_sigma, dt_ms, out_dev = self._pending.pop(0)
+        out = out_dev.cpu().numpy().astype(np.float64)
+        pose_opt = (out[0:9].reshape(3, 3), out[9:12])
+        cov_opt = out[12:48].reshape(6, 6)
+        lidar_cov = out[48:84].reshape(6, 6)
+        ndt_score, ndt_iters, ndt_converged, w = out[96:100]
+        self._trajectory.append(TrajectoryEntry(
+            timestamp=synced.t_end, frame_id=synced.scan.frame_id,
+            pose=Pose3(pose_opt[0], pose_opt[1]), ins_pose=ins_pose, covariance=cov_opt,
+        ))
+        self._stats.add(KeyFrameStats(
+            frame_id=synced.scan.frame_id,
+            timestamp=synced.t_end,
+            num_points=int(num_points),
+            ndt_iterations=int(ndt_iters),
+            converged=bool(ndt_converged > 0.5),
+            score=float(ndt_score),
+            ins_sigma=ins_sigma,
+            scaled_sigma=scaled_sigma,
+            lidar_sigma=np.sqrt(np.maximum(np.diag(lidar_cov), 0.0)),
+            optimized_sigma=np.sqrt(np.maximum(np.diag(cov_opt), 0.0)),
+            align_time_ms=dt_ms,
+            ins_pose=np_pose7(np.asarray(ins_pose.rot), np.asarray(ins_pose.trans)),
+            optimized_pose=np_pose7(pose_opt[0], pose_opt[1]),
+            # INS-vs-optimized translation gap (pipeline.cpp:745-752)
+            pose_rmse=float(np.linalg.norm(np.asarray(ins_pose.trans) - pose_opt[1])),
+            trust_weight=float(w),
+        ))
+
+    def _start(self, ins_pose, ins_sigma, synced, scan):
+        W, M = self.window, self.tgt_window
+        f64, dev = torch.float64, self.device
+        rot = np.asarray(ins_pose.rot, np.float64)
+        trans = np.asarray(ins_pose.trans, np.float64)
+        self._prev_ins = (rot.copy(), trans.copy())
+        eye3 = np.tile(np.eye(3), (W, 1, 1))
+        win_rot = eye3.copy()
+        win_rot[0] = rot
+        win_trans = np.zeros((W, 3))
+        win_trans[0] = trans
+        fp_sig = np.ones((W, 6))
+        fp_sig[0] = np.maximum(ins_sigma, 1e-6)
+        host = dict(win_rot=win_rot, win_trans=win_trans, fp_rot=win_rot, fp_trans=win_trans,
+                    fp_sig=fp_sig, fb_rot=eye3, fb_trans=np.zeros((W, 3)),
+                    fb_si=np.tile(np.eye(6), (W, 1, 1)))
+        self._carry = {k: to_device(v, dev).to(f64) for k, v in host.items()}
+        self._carry["n"] = 1
+        # target-cloud ring, newest at slot M-1 (odom_target_window)
+        prev_points = torch.zeros((M,) + tuple(scan.points.shape), dtype=scan.points.dtype, device=dev)
+        prev_points[M - 1] = scan.points
+        prev_mask = torch.zeros((M,) + tuple(scan.mask.shape), dtype=torch.bool, device=dev)
+        prev_mask[M - 1] = scan.mask
+        self._carry.update(prev_points=prev_points, prev_mask=prev_mask)
+        self._n_keyframes += 1
+        self._trajectory.append(TrajectoryEntry(
+            timestamp=synced.t_end, frame_id=synced.scan.frame_id, pose=ins_pose, ins_pose=ins_pose,
+        ))

@@ -1,11 +1,15 @@
 // Pair kernels of the registration objective, written for Hopper (sm_90a).
 //
-// Replaces the two Pallas kernels of slamtpu/ndt/pallas_math.py:
-//   ndt_pair_kernel    <- _kernel with gicp=False (+ _finish_block): the NDT
-//                         pair math of SVN stage 1 and Newton;
-//   aniso_pair_kernel  <- _kernel_aniso (+ _finish_block): plane-to-plane
-//                         GICP, the SVN polish.
-// Both reduce to the same 44 sums per pose: [0] score, [1:4] grad omega,
+// Replaces the Pallas kernels of slamtpu/ndt/pallas_math.py:
+//   ndt_pair_kernel<false> <- _kernel with gicp=False (+ _finish_block): the
+//                             NDT pair math of SVN stage 1 and Newton;
+//   ndt_pair_kernel<true>  <- _kernel with gicp=True (+ _finish_block): the
+//                             trimmed isotropic VGICP cost of odom_ndt's
+//                             GICP engine (its map bakes (C + s^2 I)^-1 into
+//                             the icov slots);
+//   aniso_pair_kernel      <- _kernel_aniso (+ _finish_block): plane-to-plane
+//                             GICP, the SVN polish.
+// All reduce to the same 44 sums per pose: [0] score, [1:4] grad omega,
 // [4:7] grad v, [7:43] Gauss-Newton Hessian row-major in [omega, v],
 // [43] count of contributing pairs. The caller adds lambda * I.
 //
@@ -19,9 +23,13 @@
 // amplify reduction noise). This takes the place of the TPU's sequential
 // grid accumulator; Hopper runs blocks in no order.
 //
-// Batch. params is (K, 16): R row-major (9), t (3), d1, d2, mode (unused,
-// must be 0), max_mahal. The grid's second axis runs over the K poses, so
-// the K = 20 particles of SVN stage 1 are one launch against one megaT.
+// Batch. params is (K, 16): R row-major (9), t (3), d1, d2, mode, max_mahal.
+// The mode slot is written as the reference writes it (1 for the VGICP cost)
+// but not read: the kernel's template flag selects the cost, as the
+// reference's trace-time ``gicp`` flag does. In the VGICP cost d1 is unused
+// and d2 carries max_corr_dist^2. The grid's second axis runs over the K
+// poses, so the K = 20 particles of SVN stage 1 are one launch against one
+// megaT.
 //
 // Bound. Per point and pose the kernel reads 96 + 3 floats (+ 9 for the
 // plane-to-plane source covariance): about 400 bytes against some 800
@@ -156,6 +164,10 @@ __device__ __forceinline__ void block_reduce_store(float* acc, float* __restrict
   }
 }
 
+// kGicp = false: NDT pair weight, score -d1 e, f = d1 d2 e (exponent cap,
+// MIN_FACTOR cut). kGicp = true: the pair counts if valid, mahal <=
+// max_mahal and |xr|^2 <= d2; score -mahal, f = -2.
+template <bool kGicp>
 __global__ void __launch_bounds__(kThreads)
 ndt_pair_kernel(const float* __restrict__ params, const float* __restrict__ ptsT,
                 const float* __restrict__ megaT, int N, float* __restrict__ partials) {
@@ -164,6 +176,7 @@ ndt_pair_kernel(const float* __restrict__ params, const float* __restrict__ ptsT
   load_pose(params + 16 * k, ps);
   const float d1 = params[16 * k + 12];
   const float d2 = params[16 * k + 13];
+  const float max_mahal = params[16 * k + 15];
   float acc[kAcc];
 #pragma unroll
   for (int c = 0; c < kAcc; ++c) acc[c] = 0.f;
@@ -193,13 +206,23 @@ ndt_pair_kernel(const float* __restrict__ params, const float* __restrict__ ptsT
       const float icx1 = ic[3] * xr0 + ic[4] * xr1 + ic[5] * xr2;
       const float icx2 = ic[6] * xr0 + ic[7] * xr1 + ic[8] * xr2;
       const float mahal = fmaxf(xr0 * icx0 + xr1 * icx1 + xr2 * icx2, 0.f);
-      const float expo = 0.5f * d2 * mahal;
-      const bool ok = valid && (expo <= 50.0f);  // MAX_EXPONENT_ARG
-      const float e = expf(-(ok ? expo : 0.f));
-      float f = d1 * d2 * e;
-      f = (ok && fabsf(f) >= 1e-15f) ? f : 0.f;  // MIN_FACTOR
+      bool ok;
+      float f, pair_score;
+      if constexpr (kGicp) {
+        const float dist2 = xr0 * xr0 + xr1 * xr1 + xr2 * xr2;
+        ok = valid && (mahal <= max_mahal) && (dist2 <= d2);
+        f = ok ? -2.f : 0.f;
+        pair_score = -mahal;
+      } else {
+        const float expo = 0.5f * d2 * mahal;
+        ok = valid && (expo <= 50.0f);  // MAX_EXPONENT_ARG
+        const float e = expf(-(ok ? expo : 0.f));
+        f = d1 * d2 * e;
+        f = (ok && fabsf(f) >= 1e-15f) ? f : 0.f;  // MIN_FACTOR
+        pair_score = -d1 * e;
+      }
       if (ok) {
-        acc[0] += -d1 * e;
+        acc[0] += pair_score;
         acc[1] += 1.f;
       }
       b0 += f * icx0;
@@ -326,6 +349,20 @@ int finish_launch(const float* partials, int n_blocks, int K, float* out, cudaSt
   return (int)cudaGetLastError();
 }
 
+template <bool kGicp>
+int pair_launch(const float* params, const float* ptsT, const float* megaT, int N, int K,
+                float* partials, float* out, cudaStream_t st) {
+  const int n_blocks = (N + kThreads - 1) / kThreads;
+  if (K <= 0) return 0;
+  if (n_blocks > 0) {
+    ndt_pair_kernel<kGicp><<<dim3(n_blocks, K), kThreads, 0, st>>>(params, ptsT, megaT, N,
+                                                                  partials);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return finish_launch(partials, n_blocks, K, out, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -339,15 +376,12 @@ const char* ndt_pair_error_string(int code) {
 // partials: (K, ceil(N / threads), 44) scratch; out: (K, 44).
 int ndt_pair_launch(const float* params, const float* ptsT, const float* megaT, int N, int K,
                     float* partials, float* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int n_blocks = (N + kThreads - 1) / kThreads;
-  if (K <= 0) return 0;
-  if (n_blocks > 0) {
-    ndt_pair_kernel<<<dim3(n_blocks, K), kThreads, 0, st>>>(params, ptsT, megaT, N, partials);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return finish_launch(partials, n_blocks, K, out, st);
+  return pair_launch<false>(params, ptsT, megaT, N, K, partials, out, (cudaStream_t)stream);
+}
+
+int gicp_pair_launch(const float* params, const float* ptsT, const float* megaT, int N, int K,
+                     float* partials, float* out, void* stream) {
+  return pair_launch<true>(params, ptsT, megaT, N, K, partials, out, (cudaStream_t)stream);
 }
 
 int aniso_pair_launch(const float* params, const float* ptsT, const float* megaT,

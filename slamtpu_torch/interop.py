@@ -13,6 +13,7 @@ import torch
 
 from .core.se3 import Pose3
 from .mapping.gaussian_map import GaussianMap
+from .ndt.newton import NewtonConfig
 from .ndt.regmap import RegMap
 from .ndt.svn import SvnConfig
 
@@ -71,3 +72,27 @@ def svn_config_from_fields(fields: Mapping) -> SvnConfig:
         if k in fields and fields[k] != v:
             raise NotImplementedError(f"SvnConfig.{k}={fields[k]!r} is not ported")
     return SvnConfig(**{k: fields[k] for k in SvnConfig._fields if k in fields})
+
+
+def newton_config_from_reference(cfg) -> NewtonConfig:
+    """The port's NewtonConfig from the reference NewtonConfig (a NamedTuple
+    of floats, or its ``_asdict()``), field for field."""
+    fields = cfg if isinstance(cfg, Mapping) else cfg._asdict()
+    return NewtonConfig(**{k: fields[k] for k in NewtonConfig._fields})
+
+
+# the odom_ndt window carry: float64 window state, float32 clouds, bool masks
+_CARRY_WINDOW = ("win_rot", "win_trans", "fp_rot", "fp_trans", "fp_sig", "fb_rot", "fb_trans",
+                 "fb_si")
+
+
+def odom_carry_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> dict:
+    """The port's odom_ndt carry from the reference app's carry dict (each
+    field passed through ``np.asarray``): the window fields as float64, the
+    target clouds as float32, their masks as bool, and the fill count ``n``
+    as a host integer."""
+    carry = {k: _t(fields[k], device, torch.float64) for k in _CARRY_WINDOW}
+    carry["prev_points"] = _t(fields["prev_points"], device, torch.float32)
+    carry["prev_mask"] = _t(fields["prev_mask"], device, torch.bool)
+    carry["n"] = int(fields["n"])
+    return carry

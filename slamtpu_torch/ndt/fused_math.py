@@ -1,18 +1,27 @@
-"""The registration objective on pre-gathered mega rows (port of
-slamtpu/ndt/pallas_math.py: ``gather_megaT`` and ``fused_objective``).
+"""The registration objective on pre-gathered mega rows and the Newton
+driver on top of it (port of slamtpu/ndt/pallas_math.py: ``gather_megaT``,
+``fused_objective``, ``score_grad_hess_fused``, ``newton_align_fused`` and
+``gicp_align_fused``).
 
-Two pair kernels carry it, each beside its plain PyTorch version:
+Three pair kernels carry it, each beside its plain PyTorch version:
 
-- ``ndt_pair``   (CUDA ``ndt_pair_kernel``,   plain ``_ndt_pair_plain``):
-  the NDT pair math, K poses in one launch (SVN stage 1);
+- ``ndt_pair``   (CUDA ``ndt_pair_kernel<false>``, plain ``_ndt_pair_plain``):
+  the NDT pair math, K poses in one launch (SVN stage 1, Newton);
+- ``gicp_pair``  (CUDA ``ndt_pair_kernel<true>``,  plain ``_gicp_pair_plain``):
+  the trimmed isotropic VGICP cost against a ``gicp_map`` RegMap (the
+  odom_ndt GICP engine's Newton);
 - ``aniso_pair`` (CUDA ``aniso_pair_kernel``, plain ``_aniso_pair_plain``):
   plane-to-plane GICP against the aux payload (the SVN polish).
 
-Each takes params (K, 16) = R(9), t(3), d1, d2, mode (0), max_mahal and
+Each takes params (K, 16) = R(9), t(3), d1, d2, mode, max_mahal and
 returns (K, 44) sums: score, grad [omega, v] (6), Hessian (36), count. A
 wrapper runs the plain version only for CPU tensors; for CUDA tensors it
 launches the kernel (``csrc/ndt_pair.cu``, built at first launch) or
 raises. ``LAUNCHES`` counts kernel launches, and only those.
+
+The Newton loop is a Python loop over outer iterations (one gather each).
+Its exit test reads the iteration count and the convergence flag on the
+host: one device sync per outer iteration, counted in ``HOST_READS``.
 """
 from __future__ import annotations
 
@@ -21,11 +30,16 @@ import threading
 
 import torch
 
+from ..core import se3
 from ..core.se3 import Pose3
-from .objective import MAX_EXPONENT_ARG, MIN_FACTOR, NdtObjective
+from .constants import gauss_constants
+from .newton import NewtonConfig, NewtonResult, regularize_step
+from .objective import MAX_EXPONENT_ARG, MIN_FACTOR, NdtObjective, sanitize_points
 from .regmap import RegMap, point_rows
 
-LAUNCHES = {"ndt_pair": 0, "aniso_pair": 0}
+LAUNCHES = {"ndt_pair": 0, "gicp_pair": 0, "aniso_pair": 0}
+# host reads of the Newton loop state (each one waits for the device)
+HOST_READS = {"newton": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -40,8 +54,9 @@ def _load():
 
             lib = ctypes.CDLL(build_library(("ndt_pair.cu",), "ndt_pair"))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.ndt_pair_launch.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
-            lib.ndt_pair_launch.restype = ci
+            for fn in (lib.ndt_pair_launch, lib.gicp_pair_launch):
+                fn.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
+                fn.restype = ci
             lib.aniso_pair_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp]
             lib.aniso_pair_launch.restype = ci
             lib.ndt_pair_threads.argtypes = []
@@ -87,8 +102,9 @@ def _launch(name, params, ptsT, megaT, scovT=None):
         stream = ctypes.c_void_p(torch.cuda.current_stream(ptsT.device).cuda_stream)
         ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (params, ptsT, megaT)]
         if scovT is None:
-            rc = lib.ndt_pair_launch(*ptrs, N, K, ctypes.c_void_p(partials.data_ptr()),
-                                     ctypes.c_void_p(out.data_ptr()), stream)
+            fn = lib.gicp_pair_launch if name == "gicp_pair" else lib.ndt_pair_launch
+            rc = fn(*ptrs, N, K, ctypes.c_void_p(partials.data_ptr()),
+                    ctypes.c_void_p(out.data_ptr()), stream)
         else:
             rc = lib.aniso_pair_launch(*ptrs, ctypes.c_void_p(scovT.data_ptr()), N, K,
                                        ctypes.c_void_p(partials.data_ptr()),
@@ -107,6 +123,16 @@ def ndt_pair(params, ptsT, megaT) -> torch.Tensor:
     if dev.type == "cpu":
         return _ndt_pair_plain(params, ptsT, megaT)
     return _launch("ndt_pair", params, ptsT, megaT)
+
+
+def gicp_pair(params, ptsT, megaT) -> torch.Tensor:
+    """Trimmed isotropic VGICP pair sums (K, 44) over ``gicp_map`` rows (B2):
+    params[:, 13] carries max_corr_dist^2, params[:, 15] max_mahal."""
+    dev = _device_of(params, ptsT, megaT)
+    _check_inputs(params, ptsT, megaT)
+    if dev.type == "cpu":
+        return _gicp_pair_plain(params, ptsT, megaT)
+    return _launch("gicp_pair", params, ptsT, megaT)
 
 
 def aniso_pair(params, ptsT, megaT, scovT) -> torch.Tensor:
@@ -183,11 +209,35 @@ def _ndt_pair_plain(params, ptsT, megaT) -> torch.Tensor:
     return _finish(R, x, b, M, score, count)
 
 
+def _trimmed_quadratic(R, x, tp, mu, icov, valid, params) -> torch.Tensor:
+    """The trimmed quadratic GICP cost of B2 and B3 for pairs with inverse
+    covariance ``icov`` ((1 or K, N, 7, 3, 3)): a pair
+    counts if valid, mahal <= params[:, 15] and |xr|^2 <= params[:, 13];
+    score -mahal, f = -2."""
+    corr2 = params[:, 13].view(-1, 1, 1)
+    max_mahal = params[:, 15].view(-1, 1, 1)
+    xr = tp[:, :, None, :] - mu[None]  # (K, N, 7, 3)
+    icx = (icov @ xr[..., None])[..., 0]
+    mahal = torch.clamp((xr * icx).sum(-1), min=0.0)
+    dist2 = (xr * xr).sum(-1)
+    ok = valid[None] & (mahal <= max_mahal) & (dist2 <= corr2)
+    f = torch.where(ok, -2.0, 0.0)
+    score = torch.where(ok, -mahal, 0.0).sum((1, 2))
+    count = ok.sum((1, 2)).to(torch.float32)
+    b = (f[..., None] * icx).sum(2)
+    M = (f[..., None, None] * icov).sum(2)
+    return _finish(R, x, b, M, score, count)
+
+
+def _gicp_pair_plain(params, ptsT, megaT) -> torch.Tensor:
+    mu, icov, valid = _unpack_rows(megaT)
+    R, x, tp = _pose_terms(params, ptsT)
+    return _trimmed_quadratic(R, x, tp, mu, icov[None], valid, params)
+
+
 def _aniso_pair_plain(params, ptsT, megaT, scovT) -> torch.Tensor:
     mu, ct, valid = _unpack_rows(megaT)
     R, x, tp = _pose_terms(params, ptsT)
-    corr2 = params[:, 13].view(-1, 1, 1)
-    max_mahal = params[:, 15].view(-1, 1, 1)
     N = ptsT.shape[1]
     csrc = scovT.t().reshape(N, 3, 3)
     rc = R[:, None] @ csrc[None] @ R.transpose(1, 2)[:, None]  # (K, N, 3, 3)
@@ -207,17 +257,7 @@ def _aniso_pair_plain(params, ptsT, megaT, scovT) -> torch.Tensor:
         torch.stack([c01, c11, c12], -1),
         torch.stack([c02, c12, c22], -1),
     ], -2) * inv_det[..., None, None]  # symmetric adjugate inverse
-    xr = tp[:, :, None, :] - mu[None]
-    icx = (Si @ xr[..., None])[..., 0]
-    mahal = torch.clamp((xr * icx).sum(-1), min=0.0)
-    dist2 = (xr * xr).sum(-1)
-    ok = valid[None] & (mahal <= max_mahal) & (dist2 <= corr2)
-    f = torch.where(ok, -2.0, 0.0)
-    score = torch.where(ok, -mahal, 0.0).sum((1, 2))
-    count = ok.sum((1, 2)).to(torch.float32)
-    b = (f[..., None] * icx).sum(2)
-    M = (f[..., None, None] * Si).sum(2)
-    return _finish(R, x, b, M, score, count)
+    return _trimmed_quadratic(R, x, tp, mu, Si, valid, params)
 
 
 # --- host side around the kernels ---
@@ -232,36 +272,139 @@ def gather_megaT(points, mask, pose: Pose3, regmap: RegMap, grid_shape,
     return src[drow].t().contiguous().to(torch.float32)
 
 
-def pose_params(pose: Pose3, d1: float, d2: float, max_mahal: float = 9.0) -> torch.Tensor:
-    """(K, 16) kernel parameters for a (K,)-batched or single pose. The
-    scalars are written by fills, not copied from the host."""
+def pose_params(pose: Pose3, d1: float, d2: float, max_mahal: float = 9.0,
+                gicp: bool = False) -> torch.Tensor:
+    """(K, 16) kernel parameters for a (K,)-batched or single pose; the mode
+    slot is 1 for the VGICP cost, as the reference writes it. The scalars
+    are written by fills, not copied from the host."""
     rot = pose.rot.reshape(-1, 9)
     params = torch.empty((rot.shape[0], 16), dtype=torch.float32, device=rot.device)
     params[:, :9] = rot
     params[:, 9:12] = pose.trans.reshape(-1, 3)
     params[:, 12] = d1
     params[:, 13] = d2
-    params[:, 14] = 0.0
+    params[:, 14] = 1.0 if gicp else 0.0
     params[:, 15] = max_mahal
     return params
 
 
-def fused_objective(ptsT, megaT, pose: Pose3, d1, d2, hess_lambda=1e-6,
-                    max_mahal: float = 9.0, src_covT=None) -> NdtObjective:
+def fused_objective(ptsT, megaT, pose: Pose3, d1, d2, hess_lambda=1e-6, gicp: bool = False,
+                    gicp_max_mahal: float = 9.0, src_covT=None) -> NdtObjective:
     """The pair math on pre-gathered rows for one pose or K poses.
 
-    With ``src_covT`` ((9, N) body-frame source covariances) it runs the
-    plane-to-plane mode: megaT carries the aux payload and ``d2`` carries
-    max_corr_dist^2. Fields come back batched like ``pose``."""
+    With ``gicp=True`` the pair weight is the trimmed quadratic VGICP cost
+    (megaT from a ``gicp_map`` RegMap; ``d2`` carries max_corr_dist^2, d1 is
+    unused). With ``src_covT`` ((9, N) body-frame source covariances) it
+    runs the plane-to-plane mode: megaT carries the aux payload and ``d2``
+    carries max_corr_dist^2. Fields come back batched like ``pose``."""
     batched = pose.rot.dim() == 3
-    params = pose_params(pose, d1, d2, max_mahal)
-    if src_covT is None:
-        out = ndt_pair(params, ptsT, megaT)
-    else:
+    params = pose_params(pose, d1, d2, gicp_max_mahal, gicp)
+    if src_covT is not None:
         out = aniso_pair(params, ptsT, megaT, src_covT)
+    elif gicp:
+        out = gicp_pair(params, ptsT, megaT)
+    else:
+        out = ndt_pair(params, ptsT, megaT)
     K = out.shape[0]
     hess = out[:, 7:43].reshape(K, 6, 6) + hess_lambda * torch.eye(
         6, dtype=out.dtype, device=out.device
     )
     obj = NdtObjective(out[:, 0], out[:, 1:7], hess, out[:, 43].to(torch.int32))
     return obj if batched else NdtObjective(*(f[0] for f in obj))
+
+
+def score_grad_hess_fused(points, mask, pose: Pose3, regmap: RegMap, d1: float, d2: float,
+                          grid_shape: tuple, hess_lambda: float = 1e-6) -> NdtObjective:
+    """Gather + the NDT pair kernel at one pose (float32)."""
+    points, mask = sanitize_points(points, mask)
+    megaT = gather_megaT(points, mask, pose, regmap, grid_shape)
+    return fused_objective(points.to(torch.float32).t().contiguous(), megaT, pose, d1, d2,
+                           hess_lambda)
+
+
+def gicp_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig,
+                     grid_shape: tuple, inner_iters: int = 1,
+                     max_mahal: float = 9.0) -> NewtonResult:
+    """VGICP registration on the fused kernel (regmap from ``gicp_map`` +
+    ``build_regmap``)."""
+    return newton_align_fused(points, mask, regmap, init_pose, cfg, grid_shape, inner_iters,
+                              _gicp=True, _gicp_max_mahal=max_mahal)
+
+
+def _read_state(it, conv):
+    """(iterations, converged) on the host: one device sync."""
+    HOST_READS["newton"] += 1
+    it_h, conv_h = torch.stack([it, conv.to(torch.int32)]).tolist()
+    return it_h, bool(conv_h)
+
+
+def newton_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig,
+                       grid_shape: tuple, inner_iters: int = 1, reg_pose: Pose3 = None,
+                       final_eval: bool = False, _gicp: bool = False,
+                       _gicp_max_mahal: float = 9.0) -> NewtonResult:
+    """Newton registration on the fused kernel (NDT, or VGICP with _gicp).
+
+    Each outer iteration gathers the mega rows once and takes up to
+    ``inner_iters`` Newton steps on them. A staleness budget guards the
+    reuse: once the summed step length since the gather would pass
+    ``cfg.gather_stale_frac * cfg.resolution``, further inner steps freeze
+    (their evaluations are discarded and they do not count toward
+    ``cfg.max_iterations``) and the next outer iteration re-gathers. The
+    loop ends when an outer iteration's last applied step is shorter than
+    ``cfg.trans_eps`` or the applied steps reach ``cfg.max_iterations``.
+
+    By default the returned (score, hessian, n_contrib) are those of the
+    last applied step, evaluated at the pose before its retract;
+    ``final_eval=True`` evaluates them at the returned pose."""
+    if cfg.kd_radius > 0.0:
+        raise NotImplementedError("the KDTREE search mode is not ported (ROADMAP A, item 11)")
+    d1, d2, _ = gauss_constants(cfg.resolution, cfg.outlier_ratio)
+    if _gicp:
+        d2 = float(cfg.gicp_max_corr_dist) ** 2  # the d2 slot carries the distance gate
+    f32 = torch.float32
+    points, mask = sanitize_points(points, mask)
+    ptsT = points.to(f32).t().contiguous()
+    dev = ptsT.device
+
+    def evaluate(pose, megaT):
+        return fused_objective(ptsT, megaT, pose, d1, d2, cfg.hess_lambda, gicp=_gicp,
+                               gicp_max_mahal=_gicp_max_mahal)
+
+    def one_step(pose, megaT):
+        obj = evaluate(pose, megaT)
+        grad, hess = regularize_step(pose, obj.grad, obj.hess, obj.n_contrib, cfg, reg_pose)
+        step = torch.linalg.solve_ex(hess, -grad)[0]
+        step = torch.where(torch.isfinite(step).all(), step, 0.0)
+        norm = torch.linalg.vector_norm(step)
+        scale = torch.where(norm > cfg.max_step_norm,
+                            cfg.max_step_norm / torch.clamp(norm, min=1e-30), 1.0)
+        step = (cfg.step_size * scale) * step
+        return se3.retract(pose, step), torch.linalg.vector_norm(step), obj
+
+    budget = torch.full((), cfg.gather_stale_frac * cfg.resolution, dtype=f32, device=dev)
+    pose = se3.cast(init_pose, f32)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    conv = torch.zeros((), dtype=torch.bool, device=dev)
+    obj = NdtObjective(torch.zeros((), dtype=f32, device=dev),
+                       torch.zeros(6, dtype=f32, device=dev),
+                       torch.zeros((6, 6), dtype=f32, device=dev),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    it_h, conv_h = 0, False
+    while it_h < cfg.max_iterations and not conv_h:
+        megaT = gather_megaT(points, mask, pose, regmap, grid_shape)
+        pose, norm, obj = one_step(pose, megaT)
+        moved, applied = norm, torch.ones((), dtype=torch.int32, device=dev)
+        for _ in range(inner_iters - 1):
+            new_pose, stepn, obj2 = one_step(pose, megaT)
+            ok = moved + stepn <= budget
+            pose = se3.where(ok, new_pose, pose)
+            norm = torch.where(ok, stepn, norm)
+            obj = NdtObjective(*(torch.where(ok, n, o) for n, o in zip(obj2, obj)))
+            moved = torch.where(ok, moved + stepn, moved + budget)
+            applied = applied + ok.to(torch.int32)
+        it = it + applied
+        conv = norm < cfg.trans_eps
+        it_h, conv_h = _read_state(it, conv)
+    if final_eval:
+        obj = evaluate(pose, gather_megaT(points, mask, pose, regmap, grid_shape))
+    return NewtonResult(pose, obj.hess, obj.score, it, conv, obj.n_contrib)

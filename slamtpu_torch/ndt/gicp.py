@@ -1,11 +1,24 @@
-"""Plane-to-plane GICP pieces of the lo_svn polish (port of the
-``regularize_plane_covariance`` and ``stencil_point_covariances`` parts of
-slamtpu/ndt/gicp.py)."""
+"""GICP pieces (port of the ``gicp_map``, ``regularize_plane_covariance``
+and ``stencil_point_covariances`` parts of slamtpu/ndt/gicp.py): the
+isotropic VGICP target map of odom_ndt's GICP engine, and the plane model
+and stencil source covariances of the lo_svn polish."""
 from __future__ import annotations
 
 import math
 
 import torch
+
+from ..core import linalg
+from ..mapping.gaussian_map import GaussianMap
+
+
+def gicp_map(gmap: GaussianMap, source_noise_sigma: float = 0.05) -> GaussianMap:
+    """The Gaussian map with icov = (cov + sigma^2 I)^-1 (zero where the
+    voxel is invalid): the isotropic source covariance baked into the
+    target, so the VGICP cost runs on the NDT gather and kernel layout."""
+    eye = torch.eye(3, dtype=gmap.cov.dtype, device=gmap.cov.device)
+    icov = linalg.inv3x3(gmap.cov + (source_noise_sigma ** 2) * eye)
+    return gmap._replace(icov=torch.where(gmap.valid[:, None, None], icov, 0.0))
 
 
 def regularize_plane_covariance(cov: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:

@@ -9,6 +9,7 @@ clock.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from contextlib import contextmanager
 from typing import Dict, List
@@ -53,3 +54,8 @@ class DeviceStageTimer:
             ms = ms[skip_first:] or ms
             out[name] = {"median_ms": float(np.median(ms)), "mean_ms": float(np.mean(ms)), "n": len(ms)}
         return out
+
+
+def span(timer, name: str):
+    """``timer.span(name)``, or no span when ``timer`` is None."""
+    return timer.span(name) if timer is not None else contextlib.nullcontext()

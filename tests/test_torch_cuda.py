@@ -6,8 +6,8 @@ not have, so run them there from the repository root without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
-chip_smoke.py checks both kernels at the main path's shapes (N = 65,536, a
-whole number of blocks). These add a ragged N, K poses in one launch
+chip_smoke.py checks the three kernels (NDT, VGICP, plane-to-plane) at the
+main paths' shapes (N = 65,536, a whole number of blocks). These add a ragged N, K poses in one launch
 against K launches, repeatability, the launch counter and the wrapper's
 input checks. Tolerances are chip_smoke.py's (``compare``): float32 sums of
 the same pair terms in another order.
@@ -33,7 +33,7 @@ def dev():
 
 def _inputs(n, k, dev, seed=0):
     """Random points, mega rows and source covariances (N points) and the
-    (K, 16) parameters of K poses near identity for both kernels."""
+    (K, 16) parameters of K poses near identity for the three kernels."""
     rng = np.random.default_rng(seed)
     pts = rng.uniform(-20.0, 20.0, (n, 3))
     mega = np.zeros((n, 96))
@@ -54,15 +54,17 @@ def _inputs(n, k, dev, seed=0):
     poses = se3.expmap(t(xi))
     d1, d2, _ = gauss_constants(1.0, 0.55)
     return (t(pts.T), t(mega.T), t(scov.T), fused_math.pose_params(poses, d1, d2),
-            fused_math.pose_params(poses, 0.0, 25.0))
+            fused_math.pose_params(poses, 0.0, 25.0),
+            fused_math.pose_params(poses, 0.0, 2.0, 9.0, gicp=True))  # the VGICP distance gate bites
 
 
-def _both(ptsT, megaT, scovT, p_ndt, p_aniso):
-    """(kernel, plain) sums of both kernels."""
+def _both(ptsT, megaT, scovT, p_ndt, p_aniso, p_gicp):
+    """(kernel, plain) sums of the three kernels."""
     return [
         (fused_math.ndt_pair(p_ndt, ptsT, megaT), fused_math._ndt_pair_plain(p_ndt, ptsT, megaT)),
         (fused_math.aniso_pair(p_aniso, ptsT, megaT, scovT),
          fused_math._aniso_pair_plain(p_aniso, ptsT, megaT, scovT)),
+        (fused_math.gicp_pair(p_gicp, ptsT, megaT), fused_math._gicp_pair_plain(p_gicp, ptsT, megaT)),
     ]
 
 
@@ -76,28 +78,31 @@ def test_kernels_match_plain_on_ragged_n(dev, n):
 
 def test_batched_launch_equals_single_launches(dev):
     """Each pose's sums do not depend on the other poses of the launch."""
-    ptsT, megaT, scovT, p_ndt, p_aniso = _inputs(3000, 5, dev, seed=1)
-    batch = _both(ptsT, megaT, scovT, p_ndt, p_aniso)
+    ptsT, megaT, scovT, *params = _inputs(3000, 5, dev, seed=1)
+    batch = _both(ptsT, megaT, scovT, *params)
     for k in range(5):
-        single = _both(ptsT, megaT, scovT, p_ndt[k:k + 1], p_aniso[k:k + 1])
+        single = _both(ptsT, megaT, scovT, *(p[k:k + 1] for p in params))
         for (b, _), (s, _) in zip(batch, single):
             assert torch.equal(b[k:k + 1], s)
 
 
 def test_kernels_repeat_and_count_launches(dev):
-    ptsT, megaT, scovT, p_ndt, p_aniso = _inputs(20000, 20, dev, seed=2)
+    ptsT, megaT, scovT, p_ndt, p_aniso, p_gicp = _inputs(20000, 20, dev, seed=2)
     before = dict(fused_math.LAUNCHES)
     a = fused_math.ndt_pair(p_ndt, ptsT, megaT)
     b = fused_math.ndt_pair(p_ndt, ptsT, megaT)
     c = fused_math.aniso_pair(p_aniso[:1], ptsT, megaT, scovT)
     d = fused_math.aniso_pair(p_aniso[:1], ptsT, megaT, scovT)
-    assert torch.equal(a, b) and torch.equal(c, d)  # no atomics: bit for bit
+    e = fused_math.gicp_pair(p_gicp[:1], ptsT, megaT)
+    f = fused_math.gicp_pair(p_gicp[:1], ptsT, megaT)
+    assert torch.equal(a, b) and torch.equal(c, d) and torch.equal(e, f)  # no atomics: bit for bit
     assert fused_math.LAUNCHES["ndt_pair"] == before["ndt_pair"] + 2
     assert fused_math.LAUNCHES["aniso_pair"] == before["aniso_pair"] + 2
+    assert fused_math.LAUNCHES["gicp_pair"] == before["gicp_pair"] + 2
 
 
 def test_wrapper_rejects_bad_inputs_on_the_card(dev):
-    ptsT, megaT, scovT, p_ndt, _ = _inputs(300, 2, dev, seed=3)
+    ptsT, megaT, scovT, p_ndt, _, p_gicp = _inputs(300, 2, dev, seed=3)
     before = dict(fused_math.LAUNCHES)
     with pytest.raises(ValueError):  # inputs on two devices
         fused_math.ndt_pair(p_ndt.cpu(), ptsT, megaT)
@@ -107,4 +112,8 @@ def test_wrapper_rejects_bad_inputs_on_the_card(dev):
         fused_math.aniso_pair(p_ndt, ptsT, megaT, scovT.double())
     with pytest.raises(ValueError):  # wrong shape
         fused_math.aniso_pair(p_ndt, ptsT, megaT[:90], scovT)
+    with pytest.raises(ValueError):  # inputs on two devices
+        fused_math.gicp_pair(p_gicp, ptsT.cpu(), megaT)
+    with pytest.raises(ValueError):  # wrong params shape
+        fused_math.gicp_pair(p_gicp[:, :15].contiguous(), ptsT, megaT)
     assert fused_math.LAUNCHES == before
