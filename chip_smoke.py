@@ -8,12 +8,19 @@
    build/slamtpu_torch/) and prints the build time and the ptxas report.
 3. Kernel phase: a Gaussian map from one simulated Berlin-shape sweep
    (2048 x 128 beams, stride 4: N = 65,536 points) at its true pose, the
-   next sweep's mega rows gathered from it; each kernel against its plain
-   PyTorch version on the card (the NDT pair kernel for K = 20 particle
-   poses, the VGICP pair kernel against the map's ``gicp_map`` rows and the
-   plane-to-plane kernel, both for K = 1), with max errors and device times
-   per call (CUDA events around 20 back-to-back calls; median of 10 such
-   rounds, kernel and plain version in turns).
+   next sweep's rows looked up in it; each kernel against its plain
+   PyTorch version on the card: the NDT pair kernel for K = 20 particle
+   poses and for K = 1 (also on a map at the odom capacity, 2^15), the
+   VGICP pair kernel against the map's ``gicp_map`` rows (K = 1), both
+   gathering their rows in the kernel from (table, rows), and the
+   plane-to-plane kernel on pre-gathered rows (K = 1). It checks that the
+   in-kernel gather equals the same kernel on pre-gathered rows bit for
+   bit, and prints max errors, device times per call (CUDA events around
+   20 back-to-back calls queued behind a device-side spin, see ``time_ms``;
+   median of 10 such rounds, kernel and plain version in turns), each call's bound (bytes and operations at the
+   card's published peaks), its share of the bound, the unique rows
+   touched, and the time of ``gather_megaT``, the torch gather that the
+   in-kernel one replaces.
 4. lo_svn phase: ``LoSvnApp(cfg, "cuda").run_replay`` over a 12-sweep skewed
    replay at the Berlin operating point; checks that the NDT and
    plane-to-plane kernels launched, that every pose is finite and that the
@@ -55,6 +62,7 @@ ODOM_GRID = (160, 160, 32)
 ODOM_ATE_BOUND = {"NDT_OMP": 0.005, "GICP": 0.050}
 ODOM_KERNEL = {"NDT_OMP": "ndt_pair", "GICP": "gicp_pair"}
 TIMED_ROUNDS, TIMED_LAUNCHES = 10, 20
+SPIN_CYCLES_PER_S = 2.0e9  # at least the H100's top SM clock (1.98 GHz)
 # kernel vs plain on the same inputs. The pair count may differ by a few in
 # ~2e5: a pair whose exponent (NDT) or Mahalanobis distance (plane-to-plane)
 # sits on its cut flips with the rounding of that distance (fused
@@ -115,8 +123,17 @@ def odom_cfg(tconfig, cfg, method):
 
 
 def time_ms(fn, torch):
-    """Device ms per call, from CUDA events around TIMED_LAUNCHES calls."""
+    """Device ms per call, from CUDA events around TIMED_LAUNCHES calls that
+    wait in the stream behind a device-side spin (``torch.cuda._sleep``)
+    lasting twice the host's time to enqueue them: the events then time the
+    device's work back to back, not the host's launch rate."""
+    t0 = time.perf_counter()
+    for _ in range(TIMED_LAUNCHES):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2.0 * host_s * SPIN_CYCLES_PER_S))
     start.record()
     for _ in range(TIMED_LAUNCHES):
         fn()
@@ -146,9 +163,11 @@ def compare(out, ref):
     return float(err.max())
 
 
-def kernel_phase(torch, replay_path, gt, cfg, dev, card):
-    """Map from one sweep at its true pose, rows for the next; each kernel
-    against its plain version. Returns the kernels' JSON entries."""
+def kernel_inputs(torch, replay_path, gt, cfg, dev):
+    """Map from one sweep at its true pose; the next sweep's points, their
+    rows in the lo_svn RegMap (and its ``gicp_map`` twin) and in an odom-size
+    RegMap, the pre-gathered rows, source covariances and the K = 20
+    particle poses around the true pose."""
     import numpy as np
 
     from slamtpu_torch.apps.common import IngestPipeline, maybe_deskew
@@ -158,7 +177,7 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
     from slamtpu_torch.ndt import fused_math
     from slamtpu_torch.ndt.constants import gauss_constants
     from slamtpu_torch.ndt.gicp import gicp_map, regularize_plane_covariance, stencil_point_covariances
-    from slamtpu_torch.ndt.regmap import build_regmap
+    from slamtpu_torch.ndt.regmap import build_regmap, grid_rows
     from slamtpu_torch.ndt.svn import INIT_SIGMAS
 
     ing = IngestPipeline(cfg, dev)
@@ -177,47 +196,113 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
     scan_b, pose_b = world_scan(b, 2)
     res = cfg.register.svn_resolution
     origin = torch.floor(pose_a.trans / res) * res - 512.0 * res
-    gmap = build_map(se3.transform_points(pose_a, scan_a.points), scan_a.mask, origin, res,
-                     capacity=cfg.register.map_capacity, min_points_per_voxel=4)
+    world_a = se3.transform_points(pose_a, scan_a.points)
+    gmap = build_map(world_a, scan_a.mask, origin, res, capacity=cfg.register.map_capacity,
+                     min_points_per_voxel=4)
     aux = torch.cat([gmap.mean, regularize_plane_covariance(gmap.cov).reshape(-1, 9)], dim=1)
     regmap = build_regmap(gmap, grid_shape=GRID, aux_payload=aux)
-    N = scan_b.points.shape[0]
-    ptsT = scan_b.points.t().contiguous()
-    megaT = fused_math.gather_megaT(scan_b.points, scan_b.mask, pose_b, regmap, GRID)
-    megaT_aux = fused_math.gather_megaT(scan_b.points, scan_b.mask, pose_b, regmap, GRID, table="aux")
     regmap_g = build_regmap(gicp_map(gmap, 0.05), grid_shape=GRID)
-    megaT_g = fused_math.gather_megaT(scan_b.points, scan_b.mask, pose_b, regmap_g, GRID)
-    scovT = stencil_point_covariances(
-        scan_b.points, scan_b.mask, (cfg.meta.columns_per_frame, ing.luts.subset_channels)
-    ).reshape(N, 9).t().contiguous()
-    log(f"kernel phase: N={N} points, {int(scan_b.num_points)} kept, "
-        f"{int(gmap.num_valid())} map voxels, overflow {int(regmap.overflow)}")
-
+    # the odom_ndt operating point's map: capacity 2^15 on its grid
+    regmap_o = build_regmap(build_map(world_a, scan_a.mask, origin, res, capacity=1 << 15,
+                                      min_points_per_voxel=4), grid_shape=ODOM_GRID)
+    pts, mask = scan_b.points, scan_b.mask
+    N = pts.shape[0]
     K = cfg.register.svn_particles
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     sig = torch.tensor(INIT_SIGMAS, device=dev)
     xi = sig * torch.randn((K, 6), generator=g, device=dev)
     particles = se3.retract(Pose3(pose_b.rot.expand(K, 3, 3), pose_b.trans.expand(K, 3)), xi)
+    one = Pose3(pose_b.rot[None], pose_b.trans[None])
     d1, d2, _ = gauss_constants(res, cfg.register.svn_outlier_ratio)
-    p_ndt = fused_math.pose_params(particles, d1, d2)
-    p_aniso = fused_math.pose_params(Pose3(pose_b.rot[None], pose_b.trans[None]), 0.0, 25.0)
-    # the VGICP pair at the 5 m default gate and the 3-sigma trim
-    p_gicp = fused_math.pose_params(Pose3(pose_b.rot[None], pose_b.trans[None]), 0.0, 25.0, 9.0,
-                                    gicp=True)
-    cases = [
-        ("ndt_pair", lambda: fused_math.ndt_pair(p_ndt, ptsT, megaT),
-         lambda: fused_math._ndt_pair_plain(p_ndt, ptsT, megaT), K,
-         "slamtpu/ndt/pallas_math.py:37 (_kernel, gicp=False; pallas_call :371)"),
-        ("gicp_pair", lambda: fused_math.gicp_pair(p_gicp, ptsT, megaT_g),
-         lambda: fused_math._gicp_pair_plain(p_gicp, ptsT, megaT_g), 1,
+    inp = dict(
+        N=N, K=K, pts=pts, mask=mask, pose=pose_b, ptsT=pts.t().contiguous(), regmap=regmap,
+        regmap_g=regmap_g, regmap_o=regmap_o,
+        rows=grid_rows(pts, mask, pose_b, regmap, GRID),
+        rows_g=grid_rows(pts, mask, pose_b, regmap_g, GRID),
+        rows_o=grid_rows(pts, mask, pose_b, regmap_o, ODOM_GRID),
+        megaT=fused_math.gather_megaT(pts, mask, pose_b, regmap, GRID),
+        megaT_g=fused_math.gather_megaT(pts, mask, pose_b, regmap_g, GRID),
+        megaT_aux=fused_math.gather_megaT(pts, mask, pose_b, regmap, GRID, table="aux"),
+        scovT=stencil_point_covariances(
+            pts, mask, (cfg.meta.columns_per_frame, ing.luts.subset_channels)
+        ).reshape(N, 9).t().contiguous(),
+        p_ndt=fused_math.pose_params(particles, d1, d2),
+        p_ndt1=fused_math.pose_params(one, d1, d2),
+        p_aniso=fused_math.pose_params(one, 0.0, 25.0),
+        # the VGICP pair at the 5 m default gate and the 3-sigma trim
+        p_gicp=fused_math.pose_params(one, 0.0, 25.0, 9.0, gicp=True),
+    )
+    log(f"kernel phase: N={N} points, {int(scan_b.num_points)} kept, "
+        f"{int(gmap.num_valid())} map voxels, overflow {int(regmap.overflow)}")
+    return inp
+
+
+# Operations the pair math needs (an FMA counts 2, exp 1), counted from the
+# arithmetic of csrc/ndt_pair.cu with the Hessian tail in the rotated frame
+# (y = R x; R applied once per pose): per point with a valid slot, the pose
+# transform (18), y x b, hat(y) M and hat(y) M hat(y)^T (54) and the 29
+# sums (29); per valid slot (pair), the NDT weight and moments (56) or the
+# trimmed quadratic (55); the plane-to-plane kernel adds R C_src R^T per
+# point (90) and the adjugate inverse per pair (36). Points and slots that
+# do not count need no work, so the count follows this run's data.
+FLOPS_POINT = {"ndt_pair": 101, "gicp_pair": 101, "aniso_pair": 191}
+FLOPS_PAIR = {"ndt_pair": 56, "gicp_pair": 55, "aniso_pair": 91}
+PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
+PEAK_F32_S = 67e12  # H100 SXM fp32 outside the tensor cores
+
+
+def pair_flops(name, K, mega):
+    """(operations, valid pairs, points with a valid slot) of one call of a
+    pair kernel for K poses over the points' mega rows (N, 96)."""
+    valid = mega[:, 84:91] > 0.5
+    pairs, active = int(valid.sum()), int(valid.any(1).sum())
+    flops = K * (active * FLOPS_POINT[name] + pairs * FLOPS_PAIR[name])
+    return flops, pairs, active
+
+
+def kernel_phase(torch, replay_path, gt, cfg, dev, card):
+    """Each kernel against its plain version at the main paths' shapes, with
+    times, bounds and the in-kernel gather's checks. Returns the kernels'
+    JSON entries."""
+    from slamtpu_torch.ndt import fused_math
+    from slamtpu_torch.ndt.regmap import grid_rows
+
+    inp = kernel_inputs(torch, replay_path, gt, cfg, dev)
+    N, K, ptsT = inp["N"], inp["K"], inp["ptsT"]
+    packed, packed_g, packed_o = inp["regmap"].packed, inp["regmap_g"].packed, inp["regmap_o"].packed
+    rows, rows_g, rows_o = inp["rows"], inp["rows_g"], inp["rows_o"]
+    # the in-kernel gather equals the same kernel on the pre-gathered rows
+    for fn, p, tab, r, megaT in ((fused_math.ndt_pair, inp["p_ndt"], packed, rows, inp["megaT"]),
+                                 (fused_math.gicp_pair, inp["p_gicp"], packed_g, rows_g, inp["megaT_g"])):
+        assert torch.equal(fn(p, ptsT, tab, r), fn(p, ptsT, *fused_math.pregathered_table(megaT))), fn
+    log("in-kernel gather == pre-gathered rows, bit for bit (ndt_pair K=20, gicp_pair K=1)")
+    lib = fused_math._load()
+    log(f"ndt_pair kernel: grid {lib.ndt_pair_grid(N, torch.cuda.current_device())} persistent "
+        f"blocks for N={N}; blocks per SM at K={K}: {lib.ndt_pair_blocks_per_sm(K)}, at K=1: "
+        f"{lib.ndt_pair_blocks_per_sm(1)}")
+
+    b1 = "slamtpu/ndt/pallas_math.py:37 (_kernel, gicp=False; pallas_call :371)"
+    cases = [  # name, label, K, kernel, plain, (table, rows) it gathers from, TPU source
+        ("ndt_pair", "K=20", K, lambda: fused_math.ndt_pair(inp["p_ndt"], ptsT, packed, rows),
+         lambda: fused_math._ndt_pair_plain(inp["p_ndt"], ptsT, packed, rows), (packed, rows), b1),
+        ("ndt_pair", "K=1", 1, lambda: fused_math.ndt_pair(inp["p_ndt1"], ptsT, packed, rows),
+         lambda: fused_math._ndt_pair_plain(inp["p_ndt1"], ptsT, packed, rows), (packed, rows), b1),
+        ("ndt_pair", "K=1, odom map", 1,
+         lambda: fused_math.ndt_pair(inp["p_ndt1"], ptsT, packed_o, rows_o),
+         lambda: fused_math._ndt_pair_plain(inp["p_ndt1"], ptsT, packed_o, rows_o),
+         (packed_o, rows_o), b1),
+        ("gicp_pair", "K=1", 1, lambda: fused_math.gicp_pair(inp["p_gicp"], ptsT, packed_g, rows_g),
+         lambda: fused_math._gicp_pair_plain(inp["p_gicp"], ptsT, packed_g, rows_g),
+         (packed_g, rows_g),
          "slamtpu/ndt/pallas_math.py:37 (_kernel, gicp=True, :96-103; pallas_call :371)"),
-        ("aniso_pair", lambda: fused_math.aniso_pair(p_aniso, ptsT, megaT_aux, scovT),
-         lambda: fused_math._aniso_pair_plain(p_aniso, ptsT, megaT_aux, scovT), 1,
-         "slamtpu/ndt/pallas_math.py:185 (_kernel_aniso; pallas_call :355)"),
+        ("aniso_pair", "K=1", 1,
+         lambda: fused_math.aniso_pair(inp["p_aniso"], ptsT, inp["megaT_aux"], inp["scovT"]),
+         lambda: fused_math._aniso_pair_plain(inp["p_aniso"], ptsT, inp["megaT_aux"], inp["scovT"]),
+         None, "slamtpu/ndt/pallas_math.py:185 (_kernel_aniso; pallas_call :355)"),
     ]
-    entries = []
-    for name, kern, plain, k, replaces in cases:
+    measured = []
+    for name, label, k, kern, plain, gathered, replaces in cases:
         out = kern()
         torch.cuda.synchronize()
         ref = plain()
@@ -226,24 +311,66 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
         assert torch.isfinite(out).all() and float(out[:, 43].min()) > 0, (name, out[:, 43])
         # runs repeat bit for bit: no atomics in the reduction
         assert torch.equal(kern(), out), f"{name} is not deterministic"
-        for _ in range(3):
-            kern(), plain()
-        t_k, t_p = [], []
-        for i in range(TIMED_ROUNDS):  # in turns: plain, kernel, kernel, plain, ...
-            order = ((plain, t_p), (kern, t_k)) if i % 2 == 0 else ((kern, t_k), (plain, t_p))
-            for fn, acc in order:
-                acc.append(time_ms(fn, torch))
-        ms, plain_ms = statistics.median(t_k), statistics.median(t_p)
-        log(f"[{card}] {name}: K={k} N={N} max_abs_err={max_err:.6g} (score {float(ref[0, 0]):.7g}, "
-            f"count {int(ref[0, 43])}) kernel {ms:.4f} ms (rounds {min(t_k):.4f}..{max(t_k):.4f}), "
-            f"plain {plain_ms:.4f} ms (rounds {min(t_p):.4f}..{max(t_p):.4f}); median over "
-            f"{TIMED_ROUNDS} rounds of {TIMED_LAUNCHES} back-to-back calls")
-        entries.append({
-            "name": name, "route": "cuda", "source": "slamtpu_torch/csrc/ndt_pair.cu",
-            "replaces": replaces, "launches": 0, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms,
-        })
+        ms, plain_ms, spread = timed_pair(torch, kern, plain)
+        # each input byte read once (the 91 floats of a mega row the math
+        # reads, once per distinct row where the kernel gathers them, and
+        # points, indices, covariances, params), each output written once
+        if gathered is not None:
+            mega = fused_math._table_rows(*gathered)
+            uniq = int(torch.unique(gathered[1]).numel())
+            nbytes = uniq * 91 * 4 + N * (12 + 4) + k * (64 + 176)
+        else:
+            mega = inp["megaT_aux"].t()
+            uniq = None
+            nbytes = N * (12 + 91 * 4 + 36) + k * (64 + 176)
+        flops, pairs, active = pair_flops(name, k, mega)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+        bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        log(f"[{card}] {name} {label}: N={N} max_abs_err={max_err:.6g} (score {float(ref[0, 0]):.7g}, "
+            f"count {int(ref[0, 43])}) kernel {ms:.4f} ms ({spread[0]}), plain {plain_ms:.4f} ms "
+            f"({spread[1]}); bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.4f} GFLOP: {active} points with a valid slot, {pairs} pairs; unique rows "
+            f"{uniq}); {100 * bound_ms / ms:.1f}% of bound")
+        measured.append(dict(
+            name=name, label=label, K=k, N=N, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms, unique_rows=uniq,
+            replaces=replaces,
+        ))
+    # the torch gather the in-kernel one replaces, and the row lookup that stays
+    pts, mask, pose, regmap = inp["pts"], inp["mask"], inp["pose"], inp["regmap"]
+    gather_ms, index_ms, spread = timed_pair(
+        torch, lambda: fused_math.gather_megaT(pts, mask, pose, regmap, GRID),
+        lambda: grid_rows(pts, mask, pose, regmap, GRID))
+    log(f"[{card}] gather_megaT {gather_ms:.4f} ms ({spread[0]}); grid_rows {index_ms:.4f} ms "
+        f"({spread[1]}) (N={N}, lo_svn map)")
+    entries = []
+    for m in measured:
+        if m["label"] != "K=20" and m["name"] == "ndt_pair":
+            continue
+        e = {k: m[k] for k in ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "share_of_bound", "unique_rows", "K", "N", "replaces")}
+        e.update(route="cuda", source="slamtpu_torch/csrc/ndt_pair.cu", launches=0, library_ms=None)
+        if m["name"] == "ndt_pair":
+            e["gather_megaT_ms"], e["grid_rows_ms"] = gather_ms, index_ms
+            e["at_k1"] = [{k: x[k] for k in ("label", "ms", "plain_ms", "bound_ms", "bound_by",
+                                              "share_of_bound", "unique_rows", "max_abs_err")}
+                          for x in measured if x["name"] == "ndt_pair" and x["K"] == 1]
+        entries.append(e)
     return entries
+
+
+def timed_pair(torch, a, b):
+    """Median device ms per call of ``a`` and ``b`` over TIMED_ROUNDS rounds
+    in turns (b, a, a, b, ...), and each one's range over the rounds."""
+    for _ in range(3):
+        a(), b()
+    t_a, t_b = [], []
+    for i in range(TIMED_ROUNDS):
+        order = ((b, t_b), (a, t_a)) if i % 2 == 0 else ((a, t_a), (b, t_b))
+        for fn, acc in order:
+            acc.append(time_ms(fn, torch))
+    return (statistics.median(t_a), statistics.median(t_b),
+            tuple(f"rounds {min(t):.4f}..{max(t):.4f}" for t in (t_a, t_b)))
 
 
 def replay_phase(torch, label, app, replay_path, gt, card, kernels, ate_bound):

@@ -1,5 +1,5 @@
-"""The registration objective on pre-gathered mega rows and the Newton
-driver on top of it (port of slamtpu/ndt/pallas_math.py: ``gather_megaT``,
+"""The registration objective on RegMap rows and the Newton driver on top
+of it (port of slamtpu/ndt/pallas_math.py: ``gather_megaT``,
 ``fused_objective``, ``score_grad_hess_fused``, ``newton_align_fused`` and
 ``gicp_align_fused``).
 
@@ -13,15 +13,20 @@ Three pair kernels carry it, each beside its plain PyTorch version:
 - ``aniso_pair`` (CUDA ``aniso_pair_kernel``, plain ``_aniso_pair_plain``):
   plane-to-plane GICP against the aux payload (the SVN polish).
 
-Each takes params (K, 16) = R(9), t(3), d1, d2, mode, max_mahal and
-returns (K, 44) sums: score, grad [omega, v] (6), Hessian (36), count. A
-wrapper runs the plain version only for CPU tensors; for CUDA tensors it
-launches the kernel (``csrc/ndt_pair.cu``, built at first launch) or
-raises. ``LAUNCHES`` counts kernel launches, and only those.
+``ndt_pair`` and ``gicp_pair`` take the RegMap table (R, 96), whose last
+row is the all-zero sentinel, and each point's row index (N,) int32
+(``regmap.grid_rows``), and gather the rows inside the kernel;
+``aniso_pair`` takes pre-gathered planar rows megaT (96, N)
+(``gather_megaT``). Each takes params (K, 16) = R(9), t(3), d1, d2, mode,
+max_mahal and returns (K, 44) sums: score, grad [omega, v] (6), Hessian
+(36), count. A wrapper runs the plain version only for CPU
+tensors; for CUDA tensors it launches the kernel (``csrc/ndt_pair.cu``,
+built at first launch) or raises. ``LAUNCHES`` counts kernel launches, and
+only those.
 
-The Newton loop is a Python loop over outer iterations (one gather each).
-Its exit test reads the iteration count and the convergence flag on the
-host: one device sync per outer iteration, counted in ``HOST_READS``.
+The Newton loop is a Python loop over outer iterations (one row lookup
+each). Its exit test reads the iteration count and the convergence flag on
+the host: one device sync per outer iteration, counted in ``HOST_READS``.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ from ..core.se3 import Pose3
 from .constants import gauss_constants
 from .newton import NewtonConfig, NewtonResult, regularize_step
 from .objective import MAX_EXPONENT_ARG, MIN_FACTOR, NdtObjective, sanitize_points
-from .regmap import RegMap, point_rows
+from .regmap import RegMap, grid_rows
 
 LAUNCHES = {"ndt_pair": 0, "gicp_pair": 0, "aniso_pair": 0}
 # host reads of the Newton loop state (each one waits for the device)
@@ -43,6 +48,10 @@ HOST_READS = {"newton": 0}
 
 _lock = threading.Lock()
 _lib = None
+# per (device, stream): the zeroed counters with which the B1/B2 kernel finds
+# its finishing blocks (the kernel resets them); launches on one stream run
+# in turn
+_tickets: dict = {}
 
 
 def _load():
@@ -55,12 +64,18 @@ def _load():
             lib = ctypes.CDLL(build_library(("ndt_pair.cu",), "ndt_pair"))
             vp, ci = ctypes.c_void_p, ctypes.c_int
             for fn in (lib.ndt_pair_launch, lib.gicp_pair_launch):
-                fn.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
+                fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp]
                 fn.restype = ci
             lib.aniso_pair_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp]
             lib.aniso_pair_launch.restype = ci
-            lib.ndt_pair_threads.argtypes = []
-            lib.ndt_pair_threads.restype = ci
+            for fn in (lib.ndt_pair_threads, lib.ndt_pair_max_poses, lib.ndt_pair_acc,
+                       lib.ndt_pair_group):
+                fn.argtypes = []
+                fn.restype = ci
+            lib.ndt_pair_grid.argtypes = [ci, ci]
+            lib.ndt_pair_grid.restype = ci
+            lib.ndt_pair_blocks_per_sm.argtypes = [ci]
+            lib.ndt_pair_blocks_per_sm.restype = ci
             lib.ndt_pair_error_string.argtypes = [ci]
             lib.ndt_pair_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -76,82 +91,132 @@ def _device_of(*tensors) -> torch.device:
     return dev
 
 
-def _check_inputs(params, ptsT, megaT, scovT=None):
-    N = ptsT.shape[1]
-    shapes = [(params, (params.shape[0], 16)), (ptsT, (3, N)), (megaT, (96, N))]
-    if scovT is not None:
-        shapes.append((scovT, (9, N)))
-    for t, shape in shapes:
-        if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"pair kernel input must be contiguous float32 {shape}, got "
-                f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
-            )
+def _check(t, shape, dtype=torch.float32):
+    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(
+            f"pair kernel input must be contiguous {dtype} {shape}, got "
+            f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
+        )
 
 
-def _launch(name, params, ptsT, megaT, scovT=None):
-    lib = _load()
-    K, N = params.shape[0], ptsT.shape[1]
-    threads = lib.ndt_pair_threads()
-    n_blocks = -(-N // threads)
-    with torch.cuda.device(ptsT.device):
-        # the caching allocator reuses ``partials`` only for work queued
-        # later on this stream, so it may go out of scope before the kernel runs
-        partials = torch.empty((K, max(n_blocks, 1), 44), dtype=torch.float32, device=ptsT.device)
-        out = torch.empty((K, 44), dtype=torch.float32, device=ptsT.device)
-        stream = ctypes.c_void_p(torch.cuda.current_stream(ptsT.device).cuda_stream)
-        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (params, ptsT, megaT)]
-        if scovT is None:
-            fn = lib.gicp_pair_launch if name == "gicp_pair" else lib.ndt_pair_launch
-            rc = fn(*ptrs, N, K, ctypes.c_void_p(partials.data_ptr()),
-                    ctypes.c_void_p(out.data_ptr()), stream)
-        else:
-            rc = lib.aniso_pair_launch(*ptrs, ctypes.c_void_p(scovT.data_ptr()), N, K,
-                                       ctypes.c_void_p(partials.data_ptr()),
-                                       ctypes.c_void_p(out.data_ptr()), stream)
+def _check_rows_inputs(params, ptsT, table, rows):
+    N = ptsT.shape[1] if ptsT.dim() == 2 else -1
+    _check(params, (params.shape[0], 16))
+    _check(ptsT, (3, N))
+    _check(table, (table.shape[0], 96))
+    _check(rows, (N,), torch.int32)
+    if table.shape[0] < 1:
+        raise ValueError("the row table needs at least its sentinel row")
+
+
+def _raise_on(rc, name, lib):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
                            f"({lib.ndt_pair_error_string(rc).decode()})")
-    LAUNCHES[name] += 1
+
+
+def _launch_rows(name, params, ptsT, table, rows):
+    """B1 / B2: one launch, the rows gathered in the kernel."""
+    lib = _load()
+    K, N, R = params.shape[0], ptsT.shape[1], table.shape[0]
+    if K > lib.ndt_pair_max_poses():
+        raise ValueError(f"{name}: at most {lib.ndt_pair_max_poses()} poses a launch, got {K}")
+    if table.data_ptr() % 16:
+        raise ValueError(f"{name}: the row table must be 16-byte aligned")
+    dev = ptsT.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        grid = lib.ndt_pair_grid(N, dev.index if dev.index is not None else torch.cuda.current_device())
+        if N > 0 and grid <= 0:
+            raise RuntimeError(f"{name}: no grid for {N} points on {dev}")
+        groups = -(-max(grid, 1) // lib.ndt_pair_group())
+        key = (str(dev), stream.cuda_stream)
+        tickets = _tickets.get(key)
+        if tickets is None or tickets.numel() < 1 + groups:
+            tickets = _tickets[key] = torch.zeros(1 + groups, dtype=torch.int32, device=dev)
+        # the caching allocator reuses the scratch only for work queued
+        # later on this stream, so it may go out of scope before the kernel runs
+        acc = lib.ndt_pair_acc()
+        partials = torch.empty((max(grid, 1), K, acc), dtype=torch.float32, device=dev)
+        gsums = torch.empty((groups, K, acc), dtype=torch.float64, device=dev)
+        out = torch.empty((K, 44), dtype=torch.float32, device=dev)
+        fn = lib.gicp_pair_launch if name == "gicp_pair" else lib.ndt_pair_launch
+        ptrs = [ctypes.c_void_p(t.data_ptr())
+                for t in (params, ptsT, table, rows, partials, gsums, tickets, out)]
+        rc = fn(*ptrs[:4], N, K, R, grid, *ptrs[4:], ctypes.c_void_p(stream.cuda_stream))
+    _raise_on(rc, name, lib)
+    if N > 0 and K > 0:  # else no kernel ran (out is zeros, or empty)
+        LAUNCHES[name] += 1
     return out
 
 
-def ndt_pair(params, ptsT, megaT) -> torch.Tensor:
-    """NDT pair sums (K, 44) for K poses over pre-gathered rows (B1)."""
-    dev = _device_of(params, ptsT, megaT)
-    _check_inputs(params, ptsT, megaT)
+def _launch_aniso(params, ptsT, megaT, scovT):
+    lib = _load()
+    K, N = params.shape[0], ptsT.shape[1]
+    n_blocks = -(-N // lib.ndt_pair_threads())
+    with torch.cuda.device(ptsT.device):
+        partials = torch.empty((K, max(n_blocks, 1), 44), dtype=torch.float32, device=ptsT.device)
+        out = torch.empty((K, 44), dtype=torch.float32, device=ptsT.device)
+        stream = ctypes.c_void_p(torch.cuda.current_stream(ptsT.device).cuda_stream)
+        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (params, ptsT, megaT, scovT)]
+        rc = lib.aniso_pair_launch(*ptrs, N, K, ctypes.c_void_p(partials.data_ptr()),
+                                   ctypes.c_void_p(out.data_ptr()), stream)
+    _raise_on(rc, "aniso_pair", lib)
+    LAUNCHES["aniso_pair"] += 1
+    return out
+
+
+def ndt_pair(params, ptsT, table, rows) -> torch.Tensor:
+    """NDT pair sums (K, 44) for K poses; point i's mega row is
+    ``table[rows[i]]`` (B1)."""
+    dev = _device_of(params, ptsT, table, rows)
+    _check_rows_inputs(params, ptsT, table, rows)
     if dev.type == "cpu":
-        return _ndt_pair_plain(params, ptsT, megaT)
-    return _launch("ndt_pair", params, ptsT, megaT)
+        return _ndt_pair_plain(params, ptsT, table, rows)
+    return _launch_rows("ndt_pair", params, ptsT, table, rows)
 
 
-def gicp_pair(params, ptsT, megaT) -> torch.Tensor:
+def gicp_pair(params, ptsT, table, rows) -> torch.Tensor:
     """Trimmed isotropic VGICP pair sums (K, 44) over ``gicp_map`` rows (B2):
     params[:, 13] carries max_corr_dist^2, params[:, 15] max_mahal."""
-    dev = _device_of(params, ptsT, megaT)
-    _check_inputs(params, ptsT, megaT)
+    dev = _device_of(params, ptsT, table, rows)
+    _check_rows_inputs(params, ptsT, table, rows)
     if dev.type == "cpu":
-        return _gicp_pair_plain(params, ptsT, megaT)
-    return _launch("gicp_pair", params, ptsT, megaT)
+        return _gicp_pair_plain(params, ptsT, table, rows)
+    return _launch_rows("gicp_pair", params, ptsT, table, rows)
 
 
 def aniso_pair(params, ptsT, megaT, scovT) -> torch.Tensor:
-    """Plane-to-plane GICP pair sums (K, 44) over aux rows (B3)."""
+    """Plane-to-plane GICP pair sums (K, 44) over pre-gathered aux rows (B3)."""
     dev = _device_of(params, ptsT, megaT, scovT)
-    _check_inputs(params, ptsT, megaT, scovT)
+    N = ptsT.shape[1] if ptsT.dim() == 2 else -1
+    for t, shape in ((params, (params.shape[0], 16)), (ptsT, (3, N)), (megaT, (96, N)),
+                     (scovT, (9, N))):
+        _check(t, shape)
     if dev.type == "cpu":
         return _aniso_pair_plain(params, ptsT, megaT, scovT)
-    return _launch("aniso_pair", params, ptsT, megaT, scovT)
+    return _launch_aniso(params, ptsT, megaT, scovT)
 
 
 # --- plain PyTorch versions (the CPU path, and the reference on the card) ---
 
 
-def _unpack_rows(megaT):
-    N = megaT.shape[1]
-    mega = megaT.t()
+def _unpack_rows(mega):
+    """(mean (N, 7, 3), icov or covariance (N, 7, 3, 3), valid (N, 7)) of
+    mega rows (N, 96)."""
+    N = mega.shape[0]
     fields = mega[:, :84].reshape(N, 7, 12)
     return fields[..., 0:3], fields[..., 3:12].reshape(N, 7, 3, 3), mega[:, 84:91] > 0.5
+
+
+def _table_rows(table, rows):
+    """Point i's mega row ``table[rows[i]]`` -> (N, 96). As in the kernel,
+    the last row R - 1 is the sentinel, which no point reads (zeros), and
+    an index outside the table reads it."""
+    R = table.shape[0]
+    idx = rows.long()
+    idx = torch.where((idx >= 0) & (idx < R), idx, R - 1)
+    return torch.where((idx == R - 1)[:, None], 0.0, table[idx])
 
 
 def _pose_terms(params, ptsT):
@@ -189,8 +254,8 @@ def _finish(R, x, b, M, score, count):
     return torch.cat([score[:, None], gw, gv, H.reshape(K, 36), count[:, None]], dim=1)
 
 
-def _ndt_pair_plain(params, ptsT, megaT) -> torch.Tensor:
-    mu, icov, valid = _unpack_rows(megaT)
+def _ndt_pair_plain(params, ptsT, table, rows) -> torch.Tensor:
+    mu, icov, valid = _unpack_rows(_table_rows(table, rows))
     R, x, tp = _pose_terms(params, ptsT)
     d1 = params[:, 12].view(-1, 1, 1)
     d2 = params[:, 13].view(-1, 1, 1)
@@ -229,14 +294,14 @@ def _trimmed_quadratic(R, x, tp, mu, icov, valid, params) -> torch.Tensor:
     return _finish(R, x, b, M, score, count)
 
 
-def _gicp_pair_plain(params, ptsT, megaT) -> torch.Tensor:
-    mu, icov, valid = _unpack_rows(megaT)
+def _gicp_pair_plain(params, ptsT, table, rows) -> torch.Tensor:
+    mu, icov, valid = _unpack_rows(_table_rows(table, rows))
     R, x, tp = _pose_terms(params, ptsT)
     return _trimmed_quadratic(R, x, tp, mu, icov[None], valid, params)
 
 
 def _aniso_pair_plain(params, ptsT, megaT, scovT) -> torch.Tensor:
-    mu, ct, valid = _unpack_rows(megaT)
+    mu, ct, valid = _unpack_rows(megaT.t())
     R, x, tp = _pose_terms(params, ptsT)
     N = ptsT.shape[1]
     csrc = scovT.t().reshape(N, 3, 3)
@@ -266,10 +331,20 @@ def _aniso_pair_plain(params, ptsT, megaT, scovT) -> torch.Tensor:
 def gather_megaT(points, mask, pose: Pose3, regmap: RegMap, grid_shape,
                  table: str = "packed") -> torch.Tensor:
     """Voxel assignment + mega-row gather -> (96, N) float32, from
-    ``regmap.packed`` or (``table="aux"``) ``regmap.packed_aux``."""
-    _tp, drow = point_rows(points, mask, pose, regmap, grid_shape)
+    ``regmap.packed`` or (``table="aux"``) ``regmap.packed_aux`` (the
+    plane-to-plane kernel's input)."""
+    drow = grid_rows(points, mask, pose, regmap, grid_shape)
     src = regmap.packed if table == "packed" else regmap.packed_aux
     return src[drow].t().contiguous().to(torch.float32)
+
+
+def pregathered_table(megaT):
+    """Pre-gathered rows megaT (96, N) as the B1/B2 kernels' inputs: the
+    table (N + 1, 96), the rows with the zero sentinel row appended, and
+    the row index 0..N-1."""
+    N = megaT.shape[1]
+    table = torch.cat([megaT.t(), megaT.new_zeros((1, 96))]).to(torch.float32)
+    return table, torch.arange(N, dtype=torch.int32, device=megaT.device)
 
 
 def pose_params(pose: Pose3, d1: float, d2: float, max_mahal: float = 9.0,
@@ -288,23 +363,7 @@ def pose_params(pose: Pose3, d1: float, d2: float, max_mahal: float = 9.0,
     return params
 
 
-def fused_objective(ptsT, megaT, pose: Pose3, d1, d2, hess_lambda=1e-6, gicp: bool = False,
-                    gicp_max_mahal: float = 9.0, src_covT=None) -> NdtObjective:
-    """The pair math on pre-gathered rows for one pose or K poses.
-
-    With ``gicp=True`` the pair weight is the trimmed quadratic VGICP cost
-    (megaT from a ``gicp_map`` RegMap; ``d2`` carries max_corr_dist^2, d1 is
-    unused). With ``src_covT`` ((9, N) body-frame source covariances) it
-    runs the plane-to-plane mode: megaT carries the aux payload and ``d2``
-    carries max_corr_dist^2. Fields come back batched like ``pose``."""
-    batched = pose.rot.dim() == 3
-    params = pose_params(pose, d1, d2, gicp_max_mahal, gicp)
-    if src_covT is not None:
-        out = aniso_pair(params, ptsT, megaT, src_covT)
-    elif gicp:
-        out = gicp_pair(params, ptsT, megaT)
-    else:
-        out = ndt_pair(params, ptsT, megaT)
+def _objective(out, batched: bool, hess_lambda) -> NdtObjective:
     K = out.shape[0]
     hess = out[:, 7:43].reshape(K, 6, 6) + hess_lambda * torch.eye(
         6, dtype=out.dtype, device=out.device
@@ -313,13 +372,42 @@ def fused_objective(ptsT, megaT, pose: Pose3, d1, d2, hess_lambda=1e-6, gicp: bo
     return obj if batched else NdtObjective(*(f[0] for f in obj))
 
 
+def rows_objective(ptsT, table, rows, pose: Pose3, d1, d2, hess_lambda=1e-6, gicp: bool = False,
+                   gicp_max_mahal: float = 9.0) -> NdtObjective:
+    """The NDT (or, with ``gicp=True``, the trimmed VGICP) pair math for one
+    pose or K poses, point i against mega row ``table[rows[i]]``. In the
+    VGICP cost the table is a ``gicp_map`` RegMap's, ``d2`` carries
+    max_corr_dist^2 and d1 is unused. Fields come back batched like
+    ``pose``."""
+    params = pose_params(pose, d1, d2, gicp_max_mahal, gicp)
+    out = (gicp_pair if gicp else ndt_pair)(params, ptsT, table, rows)
+    return _objective(out, pose.rot.dim() == 3, hess_lambda)
+
+
+def fused_objective(ptsT, megaT, pose: Pose3, d1, d2, hess_lambda=1e-6, gicp: bool = False,
+                    gicp_max_mahal: float = 9.0, src_covT=None) -> NdtObjective:
+    """The pair math on pre-gathered rows megaT (96, N) for one pose or K
+    poses (the reference's signature).
+
+    NDT and VGICP (``gicp=True``) run ``rows_objective`` with megaT's
+    columns as the table and the identity as the row index. With
+    ``src_covT`` ((9, N) body-frame source covariances) it runs the
+    plane-to-plane mode: megaT carries the aux payload and ``d2`` carries
+    max_corr_dist^2."""
+    if src_covT is None:
+        table, rows = pregathered_table(megaT)
+        return rows_objective(ptsT, table, rows, pose, d1, d2, hess_lambda, gicp, gicp_max_mahal)
+    params = pose_params(pose, d1, d2, gicp_max_mahal, gicp)
+    return _objective(aniso_pair(params, ptsT, megaT, src_covT), pose.rot.dim() == 3, hess_lambda)
+
+
 def score_grad_hess_fused(points, mask, pose: Pose3, regmap: RegMap, d1: float, d2: float,
                           grid_shape: tuple, hess_lambda: float = 1e-6) -> NdtObjective:
-    """Gather + the NDT pair kernel at one pose (float32)."""
+    """Row lookup + the NDT pair kernel at one pose (float32)."""
     points, mask = sanitize_points(points, mask)
-    megaT = gather_megaT(points, mask, pose, regmap, grid_shape)
-    return fused_objective(points.to(torch.float32).t().contiguous(), megaT, pose, d1, d2,
-                           hess_lambda)
+    rows = grid_rows(points, mask, pose, regmap, grid_shape)
+    return rows_objective(points.to(torch.float32).t().contiguous(), regmap.packed, rows, pose,
+                          d1, d2, hess_lambda)
 
 
 def gicp_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig,
@@ -344,12 +432,12 @@ def newton_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: Newt
                        _gicp_max_mahal: float = 9.0) -> NewtonResult:
     """Newton registration on the fused kernel (NDT, or VGICP with _gicp).
 
-    Each outer iteration gathers the mega rows once and takes up to
+    Each outer iteration looks up the points' rows once and takes up to
     ``inner_iters`` Newton steps on them. A staleness budget guards the
     reuse: once the summed step length since the gather would pass
     ``cfg.gather_stale_frac * cfg.resolution``, further inner steps freeze
     (their evaluations are discarded and they do not count toward
-    ``cfg.max_iterations``) and the next outer iteration re-gathers. The
+    ``cfg.max_iterations``) and the next outer iteration looks up again. The
     loop ends when an outer iteration's last applied step is shorter than
     ``cfg.trans_eps`` or the applied steps reach ``cfg.max_iterations``.
 
@@ -366,12 +454,15 @@ def newton_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: Newt
     ptsT = points.to(f32).t().contiguous()
     dev = ptsT.device
 
-    def evaluate(pose, megaT):
-        return fused_objective(ptsT, megaT, pose, d1, d2, cfg.hess_lambda, gicp=_gicp,
-                               gicp_max_mahal=_gicp_max_mahal)
+    def evaluate(pose, rows):
+        return rows_objective(ptsT, regmap.packed, rows, pose, d1, d2, cfg.hess_lambda,
+                              gicp=_gicp, gicp_max_mahal=_gicp_max_mahal)
 
-    def one_step(pose, megaT):
-        obj = evaluate(pose, megaT)
+    def lookup(pose):
+        return grid_rows(points, mask, pose, regmap, grid_shape)
+
+    def one_step(pose, rows):
+        obj = evaluate(pose, rows)
         grad, hess = regularize_step(pose, obj.grad, obj.hess, obj.n_contrib, cfg, reg_pose)
         step = torch.linalg.solve_ex(hess, -grad)[0]
         step = torch.where(torch.isfinite(step).all(), step, 0.0)
@@ -391,11 +482,11 @@ def newton_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: Newt
                        torch.zeros((), dtype=torch.int32, device=dev))
     it_h, conv_h = 0, False
     while it_h < cfg.max_iterations and not conv_h:
-        megaT = gather_megaT(points, mask, pose, regmap, grid_shape)
-        pose, norm, obj = one_step(pose, megaT)
+        rows = lookup(pose)
+        pose, norm, obj = one_step(pose, rows)
         moved, applied = norm, torch.ones((), dtype=torch.int32, device=dev)
         for _ in range(inner_iters - 1):
-            new_pose, stepn, obj2 = one_step(pose, megaT)
+            new_pose, stepn, obj2 = one_step(pose, rows)
             ok = moved + stepn <= budget
             pose = se3.where(ok, new_pose, pose)
             norm = torch.where(ok, stepn, norm)
@@ -406,5 +497,5 @@ def newton_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: Newt
         conv = norm < cfg.trans_eps
         it_h, conv_h = _read_state(it, conv)
     if final_eval:
-        obj = evaluate(pose, gather_megaT(points, mask, pose, regmap, grid_shape))
+        obj = evaluate(pose, lookup(pose))
     return NewtonResult(pose, obj.hess, obj.score, it, conv, obj.n_contrib)

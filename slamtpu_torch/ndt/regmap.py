@@ -20,11 +20,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core import se3
+from ..core.const import constant
 from ..core.se3 import Pose3
 from ..mapping import voxel
 from ..mapping.gaussian_map import GaussianMap
-from .objective import sanitize_points
 
 
 class RegMap(NamedTuple):
@@ -140,17 +139,28 @@ def empty_regmap(capacity: int, grid_shape: tuple, device, dtype=torch.float32,
     )
 
 
-def point_rows(points, mask, pose: Pose3, regmap: RegMap, grid_shape):
-    """Dense-grid lookup: (tp (N, 3), row (N,) int64), row D for masked or
-    out-of-grid points. The one implementation of the indexing contract."""
+def grid_rows(points, mask, pose: Pose3, regmap: RegMap, grid_shape) -> torch.Tensor:
+    """Dense-grid lookup: each point's row (N,) int32, row D for masked,
+    non-finite or out-of-grid points. The one implementation of the
+    indexing contract.
+
+    It runs once per SVN iteration and Newton outer iteration, so it is
+    written with few elementwise launches (on the H100 each costs a few
+    microseconds, and a (N, 3) x (3, 3) matmul goes to a GEMM kernel that
+    costs more than all of them): the pose is applied as a broadcast
+    product and a sum, a non-finite point fails the in-grid test by itself
+    (NaN compares false), and the cell test and index work on the floored
+    float coordinates, which are exact integers wherever a point can be
+    inside the grid (|coordinate| < 2^24 voxels)."""
     gx, gy, gz = grid_shape
     n_cells = gx * gy * gz
     if n_cells + 1 != regmap.grid.shape[0]:
         raise ValueError(f"grid_shape {grid_shape} does not match the RegMap's grid "
                          f"({regmap.grid.shape[0] - 1} cells)")
-    points, mask = sanitize_points(points, mask)
-    tp = se3.transform_points(pose, points)
-    inv_res = (1.0 / regmap.resolution).to(points.dtype)
-    coords = voxel.coords_of(tp, regmap.origin.to(points.dtype), inv_res)
-    flat = _cell_of(coords, mask, regmap.bbox_min, grid_shape)
-    return tp, regmap.grid[flat.long()].long()
+    dt, dev = points.dtype, points.device
+    tp = (points[:, None, :] * pose.rot).sum(-1) + pose.trans
+    inv_res = (1.0 / regmap.resolution).to(dt)
+    rel = torch.floor((tp - regmap.origin.to(dt)) * inv_res) - regmap.bbox_min
+    inside = ((rel >= 0) & (rel < constant((gx, gy, gz), dt, dev))).all(-1) & mask
+    cell = (rel.to(torch.int64) * constant((gy * gz, gz, 1), torch.int64, dev)).sum(-1)
+    return regmap.grid[torch.where(inside, cell, n_cells)]

@@ -1,8 +1,9 @@
 """Stein-Variational-Newton NDT registration: a pose posterior (port of
 slamtpu/ndt/svn.py, the RegMap shared-gather path).
 
-Per iteration: one mega-row gather at the particle mean; stage 1 evaluates
-the NDT objective for all K particles in ONE launch of the pair kernel;
+Per iteration: one row lookup at the particle mean; stage 1 evaluates the
+NDT objective for all K particles in ONE launch of the pair kernel, which
+gathers the rows from the RegMap table itself;
 stage 2 is the K x K SE(3) RBF kernel, the kernel-averaged force and the
 regularized Hessians, batched 6x6 solves; stage 3 retracts the particles.
 Then an optional MAP polish (Newton steps on the NDT score, or on the
@@ -23,7 +24,8 @@ from ..core import linalg, se3
 from ..core.const import constant
 from ..core.se3 import Pose3
 from .constants import gauss_constants
-from .fused_math import fused_objective, gather_megaT
+from .fused_math import fused_objective, gather_megaT, rows_objective
+from .regmap import grid_rows
 
 # particle init sigmas around the prior, tangent order [omega, v]
 INIT_SIGMAS = (0.01, 0.01, 0.02, 0.05, 0.05, 0.05)
@@ -84,8 +86,9 @@ def svn_align_reg(
     generator: Optional[torch.Generator] = None,
 ) -> SvnResult:
     """SVN-NDT on the RegMap layout with the shared gather: each iteration
-    gathers once at the particle mean and every particle reuses the rows
-    (exact while the particle spread stays inside the DIRECT7 window).
+    looks up the points' rows once at the particle mean and every particle
+    reuses them (exact while the particle spread stays inside the DIRECT7
+    window).
 
     The initial particle draws are ``init_noise`` when given (tests pass in
     the reference's draws), else drawn from ``generator``."""
@@ -93,8 +96,9 @@ def svn_align_reg(
     ptsT = points.t().contiguous()
 
     def make_obj(mean_pose):
-        megaT = gather_megaT(points, mask, mean_pose, regmap, grid_shape)
-        return lambda pose: fused_objective(ptsT, megaT, pose, d1, d2, cfg.hess_lambda)
+        rows = grid_rows(points, mask, mean_pose, regmap, grid_shape)
+        return lambda pose: rows_objective(ptsT, regmap.packed, rows, pose, d1, d2,
+                                           cfg.hess_lambda)
 
     polish_make_obj = None
     if cfg.polish_iters > 0 and cfg.polish_objective == "gicp_aniso":

@@ -7,10 +7,13 @@ not have, so run them there from the repository root without it:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
 chip_smoke.py checks the three kernels (NDT, VGICP, plane-to-plane) at the
-main paths' shapes (N = 65,536, a whole number of blocks). These add a ragged N, K poses in one launch
-against K launches, repeatability, the launch counter and the wrapper's
-input checks. Tolerances are chip_smoke.py's (``compare``): float32 sums of
-the same pair terms in another order.
+main paths' shapes (N = 65,536). These add ragged N (below one 32-point
+tile, not a multiple of it, more tiles than persistent blocks), K poses in
+one launch against K launches, rows gathered in the kernel against the
+same rows pre-gathered, points sharing rows, sentinel and out-of-range
+rows, repeatability, the launch counter and the wrappers' input checks. Tolerances are
+chip_smoke.py's (``compare``): float32 sums of the same pair terms in
+another order.
 """
 import numpy as np
 import pytest
@@ -32,43 +35,55 @@ def dev():
 
 
 def _inputs(n, k, dev, seed=0):
-    """Random points, mega rows and source covariances (N points) and the
-    (K, 16) parameters of K poses near identity for the three kernels."""
+    """Random points, a row table (its last row the all-zero sentinel) with
+    each point's row index, the same rows pre-gathered (96, N) for the
+    plane-to-plane kernel, source covariances, and the (K, 16) parameters
+    of K poses near identity for the three kernels."""
     rng = np.random.default_rng(seed)
-    pts = rng.uniform(-20.0, 20.0, (n, 3))
-    mega = np.zeros((n, 96))
+    R = max(n // 2, 1) + 1
+    # point pairs (2r, 2r + 1) share table row perm[r], whose means sit near them
+    centers = rng.uniform(-20.0, 20.0, (R - 1, 3))
+    pair = np.minimum(np.arange(n) // 2, R - 2)
+    pts = centers[pair] + rng.normal(scale=0.3, size=(n, 3))
+    perm = rng.permutation(R - 1)
+    rows = perm[pair]
+    rows[rng.random(n) < 0.1] = R - 1  # sentinel: no valid slot
+    table = np.zeros((R, 96))
     for s in range(7):
-        a = rng.normal(scale=0.3, size=(n, 3, 3))
-        mega[:, 12 * s:12 * s + 3] = pts + rng.normal(scale=0.5, size=(n, 3))
+        a = rng.normal(scale=0.3, size=(R - 1, 3, 3))
+        table[perm, 12 * s:12 * s + 3] = centers + rng.normal(scale=0.5, size=(R - 1, 3))
         # SPD: the icov of the NDT mode, the target covariance of the plane-to-plane mode
-        mega[:, 12 * s + 3:12 * s + 12] = (a @ a.transpose(0, 2, 1) + 0.01 * np.eye(3)).reshape(n, 9)
-        mega[:, 84 + s] = rng.random(n) < 0.7
-    mega[rng.random(n) < 0.1] = 0.0  # sentinel rows: no valid slot
+        table[:-1, 12 * s + 3:12 * s + 12] = (a @ a.transpose(0, 2, 1) + 0.01 * np.eye(3)).reshape(R - 1, 9)
+        table[:-1, 84 + s] = rng.random(R - 1) < 0.7
     c = rng.normal(scale=0.1, size=(n, 3, 3))
     scov = (c @ c.transpose(0, 2, 1) + 1e-3 * np.eye(3)).reshape(n, 9)
     xi = rng.normal(scale=[0.01, 0.01, 0.02, 0.05, 0.05, 0.05], size=(k, 6))
 
-    def t(a):
-        return torch.tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
+    def t(a, dtype=torch.float32):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
 
     poses = se3.expmap(t(xi))
     d1, d2, _ = gauss_constants(1.0, 0.55)
-    return (t(pts.T), t(mega.T), t(scov.T), fused_math.pose_params(poses, d1, d2),
+    tab, idx = t(table), t(rows, torch.int32)
+    megaT = tab[idx.long()].t().contiguous()
+    return (t(pts.T), tab, idx, megaT, t(scov.T), fused_math.pose_params(poses, d1, d2),
             fused_math.pose_params(poses, 0.0, 25.0),
             fused_math.pose_params(poses, 0.0, 2.0, 9.0, gicp=True))  # the VGICP distance gate bites
 
 
-def _both(ptsT, megaT, scovT, p_ndt, p_aniso, p_gicp):
+def _both(ptsT, table, rows, megaT, scovT, p_ndt, p_aniso, p_gicp):
     """(kernel, plain) sums of the three kernels."""
     return [
-        (fused_math.ndt_pair(p_ndt, ptsT, megaT), fused_math._ndt_pair_plain(p_ndt, ptsT, megaT)),
+        (fused_math.ndt_pair(p_ndt, ptsT, table, rows),
+         fused_math._ndt_pair_plain(p_ndt, ptsT, table, rows)),
         (fused_math.aniso_pair(p_aniso, ptsT, megaT, scovT),
          fused_math._aniso_pair_plain(p_aniso, ptsT, megaT, scovT)),
-        (fused_math.gicp_pair(p_gicp, ptsT, megaT), fused_math._gicp_pair_plain(p_gicp, ptsT, megaT)),
+        (fused_math.gicp_pair(p_gicp, ptsT, table, rows),
+         fused_math._gicp_pair_plain(p_gicp, ptsT, table, rows)),
     ]
 
 
-@pytest.mark.parametrize("n", [1, 255, 257, 5000])
+@pytest.mark.parametrize("n", [1, 31, 32, 100, 255, 257, 5000])
 def test_kernels_match_plain_on_ragged_n(dev, n):
     for out, ref in _both(*_inputs(n, 4, dev)):
         assert out.shape == ref.shape == (4, 44)
@@ -76,25 +91,83 @@ def test_kernels_match_plain_on_ragged_n(dev, n):
         compare(out, ref)
 
 
+def test_more_tiles_than_persistent_blocks(dev):
+    """~3,100 tiles over the persistent blocks: each block walks several
+    tiles through its ring (and the last tile is ragged)."""
+    ptsT, table, rows, megaT, scovT, p_ndt, p_aniso, p_gicp = _inputs(100_003, 3, dev, seed=4)
+    grid = fused_math._load().ndt_pair_grid(100_003, torch.cuda.current_device())
+    assert 0 < grid < -(-100_003 // 32) // 4
+    for out, ref in _both(ptsT, table, rows, megaT, scovT, p_ndt, p_aniso, p_gicp):
+        compare(out, ref)
+
+
 def test_batched_launch_equals_single_launches(dev):
-    """Each pose's sums do not depend on the other poses of the launch."""
-    ptsT, megaT, scovT, *params = _inputs(3000, 5, dev, seed=1)
-    batch = _both(ptsT, megaT, scovT, *params)
+    """Each pose's sums do not depend on K or on the other poses of the
+    launch: K = 1..20 poses in one launch equal the single launches, bit
+    for bit."""
+    ptsT, table, rows, megaT, scovT, *params = _inputs(3000, 20, dev, seed=1)
+    p_ndt, p_aniso, p_gicp = params
+    singles = {
+        "ndt": [fused_math.ndt_pair(p_ndt[k:k + 1], ptsT, table, rows) for k in range(20)],
+        "gicp": [fused_math.gicp_pair(p_gicp[k:k + 1], ptsT, table, rows) for k in range(20)],
+    }
+    for K in range(1, 21):
+        nb = fused_math.ndt_pair(p_ndt[:K].contiguous(), ptsT, table, rows)
+        gb = fused_math.gicp_pair(p_gicp[:K].contiguous(), ptsT, table, rows)
+        for k in range(K):
+            assert torch.equal(nb[k:k + 1], singles["ndt"][k]), (K, k)
+            assert torch.equal(gb[k:k + 1], singles["gicp"][k]), (K, k)
+    batch = fused_math.aniso_pair(p_aniso[:5].contiguous(), ptsT, megaT, scovT)
     for k in range(5):
-        single = _both(ptsT, megaT, scovT, *(p[k:k + 1] for p in params))
-        for (b, _), (s, _) in zip(batch, single):
-            assert torch.equal(b[k:k + 1], s)
+        assert torch.equal(batch[k:k + 1], fused_math.aniso_pair(p_aniso[k:k + 1], ptsT, megaT, scovT))
+
+
+def test_gathered_in_kernel_equals_pregathered(dev):
+    """The kernel on (table, rows) equals the same kernel on the rows
+    pre-gathered as a table of their own with the identity index."""
+    ptsT, table, rows, megaT, _, p_ndt, _, p_gicp = _inputs(20000, 20, dev, seed=5)
+    pre, ident = fused_math.pregathered_table(megaT)
+    assert torch.equal(fused_math.ndt_pair(p_ndt, ptsT, table, rows),
+                       fused_math.ndt_pair(p_ndt, ptsT, pre, ident))
+    assert torch.equal(fused_math.gicp_pair(p_gicp[:1], ptsT, table, rows),
+                       fused_math.gicp_pair(p_gicp[:1], ptsT, pre, ident))
+
+
+def test_points_sharing_rows(dev):
+    """Points of a tile that share a row share its copy: rows drawn from a
+    handful of table rows give the plain version's sums."""
+    ptsT, table, rows, _, _, p_ndt, _, p_gicp = _inputs(5000, 3, dev, seed=8)
+    few = rows[torch.randint(0, 4, rows.shape, generator=torch.Generator().manual_seed(0)).to(dev) * 97]
+    for fn, plain, p in ((fused_math.ndt_pair, fused_math._ndt_pair_plain, p_ndt),
+                         (fused_math.gicp_pair, fused_math._gicp_pair_plain, p_gicp)):
+        compare(fn(p, ptsT, table, few), plain(p, ptsT, table, few))
+
+
+def test_sentinel_and_out_of_range_rows(dev):
+    """All-sentinel rows count nothing and give finite (zero) sums; an index
+    outside the table reads the sentinel row."""
+    ptsT, table, rows, _, _, p_ndt, _, p_gicp = _inputs(5000, 3, dev, seed=6)
+    R = table.shape[0]
+    sentinel = torch.full_like(rows, R - 1)
+    for fn in (fused_math.ndt_pair, fused_math.gicp_pair):
+        out = fn(p_ndt if fn is fused_math.ndt_pair else p_gicp, ptsT, table, sentinel)
+        assert torch.isfinite(out).all() and (out[:, 43] == 0).all() and (out == 0).all()
+    bad, fixed = rows.clone(), rows.clone()
+    bad[::7], bad[3::7] = R + 11, -5
+    fixed[::7], fixed[3::7] = R - 1, R - 1
+    assert torch.equal(fused_math.ndt_pair(p_ndt, ptsT, table, bad),
+                       fused_math.ndt_pair(p_ndt, ptsT, table, fixed))
 
 
 def test_kernels_repeat_and_count_launches(dev):
-    ptsT, megaT, scovT, p_ndt, p_aniso, p_gicp = _inputs(20000, 20, dev, seed=2)
+    ptsT, table, rows, megaT, scovT, p_ndt, p_aniso, p_gicp = _inputs(20000, 20, dev, seed=2)
     before = dict(fused_math.LAUNCHES)
-    a = fused_math.ndt_pair(p_ndt, ptsT, megaT)
-    b = fused_math.ndt_pair(p_ndt, ptsT, megaT)
+    a = fused_math.ndt_pair(p_ndt, ptsT, table, rows)
+    b = fused_math.ndt_pair(p_ndt, ptsT, table, rows)
     c = fused_math.aniso_pair(p_aniso[:1], ptsT, megaT, scovT)
     d = fused_math.aniso_pair(p_aniso[:1], ptsT, megaT, scovT)
-    e = fused_math.gicp_pair(p_gicp[:1], ptsT, megaT)
-    f = fused_math.gicp_pair(p_gicp[:1], ptsT, megaT)
+    e = fused_math.gicp_pair(p_gicp[:1], ptsT, table, rows)
+    f = fused_math.gicp_pair(p_gicp[:1], ptsT, table, rows)
     assert torch.equal(a, b) and torch.equal(c, d) and torch.equal(e, f)  # no atomics: bit for bit
     assert fused_math.LAUNCHES["ndt_pair"] == before["ndt_pair"] + 2
     assert fused_math.LAUNCHES["aniso_pair"] == before["aniso_pair"] + 2
@@ -102,18 +175,39 @@ def test_kernels_repeat_and_count_launches(dev):
 
 
 def test_wrapper_rejects_bad_inputs_on_the_card(dev):
-    ptsT, megaT, scovT, p_ndt, _, p_gicp = _inputs(300, 2, dev, seed=3)
+    ptsT, table, rows, megaT, scovT, p_ndt, _, p_gicp = _inputs(300, 2, dev, seed=3)
     before = dict(fused_math.LAUNCHES)
     with pytest.raises(ValueError):  # inputs on two devices
-        fused_math.ndt_pair(p_ndt.cpu(), ptsT, megaT)
+        fused_math.ndt_pair(p_ndt.cpu(), ptsT, table, rows)
     with pytest.raises(ValueError):  # not contiguous
-        fused_math.ndt_pair(p_ndt, ptsT.t().contiguous().t(), megaT)
+        fused_math.ndt_pair(p_ndt, ptsT.t().contiguous().t(), table, rows)
     with pytest.raises(ValueError):  # wrong dtype
         fused_math.aniso_pair(p_ndt, ptsT, megaT, scovT.double())
     with pytest.raises(ValueError):  # wrong shape
         fused_math.aniso_pair(p_ndt, ptsT, megaT[:90], scovT)
     with pytest.raises(ValueError):  # inputs on two devices
-        fused_math.gicp_pair(p_gicp, ptsT.cpu(), megaT)
+        fused_math.gicp_pair(p_gicp, ptsT.cpu(), table, rows)
     with pytest.raises(ValueError):  # wrong params shape
-        fused_math.gicp_pair(p_gicp[:, :15].contiguous(), ptsT, megaT)
+        fused_math.gicp_pair(p_gicp[:, :15].contiguous(), ptsT, table, rows)
+    assert fused_math.LAUNCHES == before
+
+
+@pytest.mark.parametrize("fn", ["ndt_pair", "gicp_pair"])
+def test_wrapper_rejects_bad_table_and_rows(dev, fn):
+    """Wrong dtype, shape or device of the table or the row index raises
+    before any launch."""
+    ptsT, table, rows, _, _, p_ndt, _, _ = _inputs(300, 2, dev, seed=7)
+    kern = getattr(fused_math, fn)
+    before = dict(fused_math.LAUNCHES)
+    R = table.shape[0]
+    misaligned = table.view(-1)[1:1 + 96 * (R - 1)].view(R - 1, 96)  # 4 bytes off
+    bad = [
+        (table.double(), rows), (table[:, :92].contiguous(), rows), (table.t().contiguous().t(), rows),
+        (table.cpu(), rows), (misaligned, rows),
+        (table, rows.long()), (table, rows[:-1]), (table, rows.cpu()), (table, rows[None]),
+        (table, rows.float()),
+    ]
+    for tab, idx in bad:
+        with pytest.raises(ValueError):
+            kern(p_ndt, ptsT, tab, idx)
     assert fused_math.LAUNCHES == before

@@ -107,11 +107,15 @@ def test_batched_call_equals_single_calls(inputs):
 def test_wrapper_checks_inputs(inputs):
     pts, megaT, _, _ = inputs
     params = torch.zeros((1, 16))
+    table = torch.as_tensor(megaT.T.copy())
+    rows = torch.arange(N, dtype=torch.int32)
     with pytest.raises(ValueError):  # not contiguous
-        fused_math.ndt_pair(params, torch.as_tensor(pts).t(), torch.as_tensor(megaT))
+        fused_math.ndt_pair(params, torch.as_tensor(pts).t(), table, rows)
     with pytest.raises(ValueError):  # wrong dtype
-        fused_math.ndt_pair(params.double(), torch.as_tensor(pts.T.copy()), torch.as_tensor(megaT))
+        fused_math.ndt_pair(params.double(), torch.as_tensor(pts.T.copy()), table, rows)
+    with pytest.raises(ValueError):  # int64 row indices
+        fused_math.ndt_pair(params, torch.as_tensor(pts.T.copy()), table, rows.long())
     # CPU tensors take the plain version and launch nothing
     before = dict(fused_math.LAUNCHES)
-    fused_math.ndt_pair(params, torch.as_tensor(pts.T.copy()), torch.as_tensor(megaT))
+    fused_math.ndt_pair(params, torch.as_tensor(pts.T.copy()), table, rows)
     assert fused_math.LAUNCHES == before
