@@ -11,16 +11,18 @@
    next sweep's rows looked up in it; each kernel against its plain
    PyTorch version on the card: the NDT pair kernel for K = 20 particle
    poses and for K = 1 (also on a map at the odom capacity, 2^15), the
-   VGICP pair kernel against the map's ``gicp_map`` rows (K = 1), both
-   gathering their rows in the kernel from (table, rows), and the
-   plane-to-plane kernel on pre-gathered rows (K = 1). It checks that the
-   in-kernel gather equals the same kernel on pre-gathered rows bit for
-   bit, and prints max errors, device times per call (CUDA events around
-   20 back-to-back calls queued behind a device-side spin, see ``time_ms``;
-   median of 10 such rounds, kernel and plain version in turns), each call's bound (bytes and operations at the
-   card's published peaks), its share of the bound, the unique rows
-   touched, and the time of ``gather_megaT``, the torch gather that the
-   in-kernel one replaces.
+   VGICP pair kernel against the map's ``gicp_map`` rows (K = 1) and the
+   plane-to-plane kernel against the map's aux table with the points'
+   source covariances (K = 1), each gathering its rows in the kernel from
+   (table, rows). It checks that the in-kernel gather equals the same
+   kernel on pre-gathered rows bit for bit, and prints max errors, device
+   times per call (CUDA events around 20 back-to-back calls queued behind
+   a device-side spin, see ``time_ms``; median of 10 such rounds, kernel
+   and plain version in turns), each call's bound (bytes and operations at
+   the card's published peaks), its share of the bound, the unique rows
+   touched, the time of ``gather_megaT`` on each table (the torch gather
+   that the in-kernel one replaces) and of the row lookup with the
+   plane-to-plane kernel (one polish evaluation).
 4. lo_svn phase: ``LoSvnApp(cfg, "cuda").run_replay`` over a 12-sweep skewed
    replay at the Berlin operating point; checks that the NDT and
    plane-to-plane kernels launched, that every pose is finite and that the
@@ -166,8 +168,9 @@ def compare(out, ref):
 def kernel_inputs(torch, replay_path, gt, cfg, dev):
     """Map from one sweep at its true pose; the next sweep's points, their
     rows in the lo_svn RegMap (and its ``gicp_map`` twin) and in an odom-size
-    RegMap, the pre-gathered rows, source covariances and the K = 20
-    particle poses around the true pose."""
+    RegMap, the same rows pre-gathered (``gather_megaT``, for the in-kernel
+    gather's check), source covariances and the K = 20 particle poses
+    around the true pose."""
     import numpy as np
 
     from slamtpu_torch.apps.common import IngestPipeline, maybe_deskew
@@ -238,16 +241,19 @@ def kernel_inputs(torch, replay_path, gt, cfg, dev):
     return inp
 
 
-# Operations the pair math needs (an FMA counts 2, exp 1), counted from the
-# arithmetic of csrc/ndt_pair.cu with the Hessian tail in the rotated frame
-# (y = R x; R applied once per pose): per point with a valid slot, the pose
-# transform (18), y x b, hat(y) M and hat(y) M hat(y)^T (54) and the 29
-# sums (29); per valid slot (pair), the NDT weight and moments (56) or the
-# trimmed quadratic (55); the plane-to-plane kernel adds R C_src R^T per
-# point (90) and the adjugate inverse per pair (36). Points and slots that
-# do not count need no work, so the count follows this run's data.
+# Operations the pair math needs (an FMA counts 2, exp and a division 1),
+# counted from the arithmetic of csrc/ndt_pair.cu with the Hessian tail in
+# the rotated frame (y = R x; R applied once per pose): per point with a
+# valid slot, the pose transform (18), y x b, hat(y) M and hat(y) M hat(y)^T
+# (54) and the 29 sums (29); per valid slot (pair), the NDT weight and
+# moments (56) or the trimmed quadratic (55). The plane-to-plane cost adds
+# R C_src R^T per point (R C_src 54, its upper triangle times R^T 36) and
+# per pair S = C_t + rc (6) and its adjugate inverse (cofactors 18,
+# determinant 5, reciprocal 1, scaling 6). Points and slots that do not
+# count need no work, so the count follows this run's data.
 FLOPS_POINT = {"ndt_pair": 101, "gicp_pair": 101, "aniso_pair": 191}
 FLOPS_PAIR = {"ndt_pair": 56, "gicp_pair": 55, "aniso_pair": 91}
+COSTS = {"ndt_pair": 0, "gicp_pair": 1, "aniso_pair": 2}  # the kernel template's cost
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_S = 67e12  # H100 SXM fp32 outside the tensor cores
 
@@ -269,18 +275,26 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
     from slamtpu_torch.ndt.regmap import grid_rows
 
     inp = kernel_inputs(torch, replay_path, gt, cfg, dev)
-    N, K, ptsT = inp["N"], inp["K"], inp["ptsT"]
+    N, K, ptsT, scovT = inp["N"], inp["K"], inp["ptsT"], inp["scovT"]
     packed, packed_g, packed_o = inp["regmap"].packed, inp["regmap_g"].packed, inp["regmap_o"].packed
+    packed_aux = inp["regmap"].packed_aux
     rows, rows_g, rows_o = inp["rows"], inp["rows_g"], inp["rows_o"]
+
+    def aniso(p, ptsT_, tab, r):
+        return fused_math.aniso_pair(p, ptsT_, tab, r, scovT)
+
     # the in-kernel gather equals the same kernel on the pre-gathered rows
     for fn, p, tab, r, megaT in ((fused_math.ndt_pair, inp["p_ndt"], packed, rows, inp["megaT"]),
-                                 (fused_math.gicp_pair, inp["p_gicp"], packed_g, rows_g, inp["megaT_g"])):
+                                 (fused_math.gicp_pair, inp["p_gicp"], packed_g, rows_g, inp["megaT_g"]),
+                                 (aniso, inp["p_aniso"], packed_aux, rows, inp["megaT_aux"])):
         assert torch.equal(fn(p, ptsT, tab, r), fn(p, ptsT, *fused_math.pregathered_table(megaT))), fn
-    log("in-kernel gather == pre-gathered rows, bit for bit (ndt_pair K=20, gicp_pair K=1)")
+    log("in-kernel gather == pre-gathered rows, bit for bit (ndt_pair K=20, gicp_pair K=1, "
+        "aniso_pair K=1)")
     lib = fused_math._load()
-    log(f"ndt_pair kernel: grid {lib.ndt_pair_grid(N, torch.cuda.current_device())} persistent "
-        f"blocks for N={N}; blocks per SM at K={K}: {lib.ndt_pair_blocks_per_sm(K)}, at K=1: "
-        f"{lib.ndt_pair_blocks_per_sm(1)}")
+    log(f"pair kernel: grid {lib.ndt_pair_grid(N, torch.cuda.current_device())} persistent "
+        f"blocks for N={N}; blocks per SM " + ", ".join(
+            f"{name} {lib.ndt_pair_blocks_per_sm(k, cost)} at K={k}"
+            for name, cost in COSTS.items() for k in (K, 1)))
 
     b1 = "slamtpu/ndt/pallas_math.py:37 (_kernel, gicp=False; pallas_call :371)"
     cases = [  # name, label, K, kernel, plain, (table, rows) it gathers from, TPU source
@@ -296,10 +310,9 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
          lambda: fused_math._gicp_pair_plain(inp["p_gicp"], ptsT, packed_g, rows_g),
          (packed_g, rows_g),
          "slamtpu/ndt/pallas_math.py:37 (_kernel, gicp=True, :96-103; pallas_call :371)"),
-        ("aniso_pair", "K=1", 1,
-         lambda: fused_math.aniso_pair(inp["p_aniso"], ptsT, inp["megaT_aux"], inp["scovT"]),
-         lambda: fused_math._aniso_pair_plain(inp["p_aniso"], ptsT, inp["megaT_aux"], inp["scovT"]),
-         None, "slamtpu/ndt/pallas_math.py:185 (_kernel_aniso; pallas_call :355)"),
+        ("aniso_pair", "K=1", 1, lambda: aniso(inp["p_aniso"], ptsT, packed_aux, rows),
+         lambda: fused_math._aniso_pair_plain(inp["p_aniso"], ptsT, packed_aux, rows, scovT),
+         (packed_aux, rows), "slamtpu/ndt/pallas_math.py:185 (_kernel_aniso; pallas_call :355)"),
     ]
     measured = []
     for name, label, k, kern, plain, gathered, replaces in cases:
@@ -313,16 +326,11 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
         assert torch.equal(kern(), out), f"{name} is not deterministic"
         ms, plain_ms, spread = timed_pair(torch, kern, plain)
         # each input byte read once (the 91 floats of a mega row the math
-        # reads, once per distinct row where the kernel gathers them, and
-        # points, indices, covariances, params), each output written once
-        if gathered is not None:
-            mega = fused_math._table_rows(*gathered)
-            uniq = int(torch.unique(gathered[1]).numel())
-            nbytes = uniq * 91 * 4 + N * (12 + 4) + k * (64 + 176)
-        else:
-            mega = inp["megaT_aux"].t()
-            uniq = None
-            nbytes = N * (12 + 91 * 4 + 36) + k * (64 + 176)
+        # reads, once per distinct row the kernel gathers, and points,
+        # indices, source covariances, params), each output written once
+        mega = fused_math._table_rows(*gathered)
+        uniq = int(torch.unique(gathered[1]).numel())
+        nbytes = uniq * 91 * 4 + N * (12 + 4 + (36 if name == "aniso_pair" else 0)) + k * (64 + 176)
         flops, pairs, active = pair_flops(name, k, mega)
         t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
         bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -336,13 +344,19 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
             bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms, unique_rows=uniq,
             replaces=replaces,
         ))
-    # the torch gather the in-kernel one replaces, and the row lookup that stays
+    # the torch gathers the in-kernel one replaces, the row lookup that
+    # stays, and one polish evaluation (lookup + plane-to-plane kernel)
     pts, mask, pose, regmap = inp["pts"], inp["mask"], inp["pose"], inp["regmap"]
     gather_ms, index_ms, spread = timed_pair(
         torch, lambda: fused_math.gather_megaT(pts, mask, pose, regmap, GRID),
         lambda: grid_rows(pts, mask, pose, regmap, GRID))
     log(f"[{card}] gather_megaT {gather_ms:.4f} ms ({spread[0]}); grid_rows {index_ms:.4f} ms "
         f"({spread[1]}) (N={N}, lo_svn map)")
+    gather_aux_ms, polish_ms, spread = timed_pair(
+        torch, lambda: fused_math.gather_megaT(pts, mask, pose, regmap, GRID, table="aux"),
+        lambda: aniso(inp["p_aniso"], ptsT, packed_aux, grid_rows(pts, mask, pose, regmap, GRID)))
+    log(f"[{card}] gather_megaT(table=\"aux\") {gather_aux_ms:.4f} ms ({spread[0]}); grid_rows + "
+        f"aniso_pair {polish_ms:.4f} ms ({spread[1]}) (N={N}, lo_svn map)")
     entries = []
     for m in measured:
         if m["label"] != "K=20" and m["name"] == "ndt_pair":
@@ -355,6 +369,9 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
             e["at_k1"] = [{k: x[k] for k in ("label", "ms", "plain_ms", "bound_ms", "bound_by",
                                               "share_of_bound", "unique_rows", "max_abs_err")}
                           for x in measured if x["name"] == "ndt_pair" and x["K"] == 1]
+        if m["name"] == "aniso_pair":
+            e["gather_megaT_ms"], e["grid_rows_ms"] = gather_aux_ms, index_ms
+            e["grid_rows_plus_kernel_ms"] = polish_ms
         entries.append(e)
     return entries
 

@@ -1,32 +1,33 @@
 #!/usr/bin/env python3
-"""Before/after device times of the NDT and VGICP pair kernels (B1, B2) on
-one CUDA card, in one process.
+"""Before/after device times of the plane-to-plane pair kernel (B3) on one
+CUDA card, in one process.
 
     python3 pair_kernel_ab.py --parent OLD_CHECKOUT
 
 ``OLD_CHECKOUT`` is an earlier checkout of this repository whose
-``slamtpu_torch`` takes pre-gathered rows: ``fused_math.ndt_pair`` /
-``gicp_pair(params, ptsT, megaT)`` and ``gather_megaT``. Its package is
-loaded beside this tree's (under another name; it builds its kernels into
-its own ``build/``), and both run on chip_smoke.py's kernel-phase inputs
-(the next sweep's N = 65,536 points against a Berlin-shape map).
+plane-to-plane kernel takes pre-gathered rows:
+``fused_math.aniso_pair(params, ptsT, megaT, scovT)`` on
+``gather_megaT(..., table="aux")``. Its package is loaded beside this
+tree's (under another name; it builds its kernels into its own
+``build/``), and both run on chip_smoke.py's kernel-phase inputs (the next
+sweep's N = 65,536 points against a Berlin-shape map with its aux table,
+at the polish's K = 1).
 
 In turns (the order reversed every other round), median of 10 rounds of
 chip_smoke.time_ms (CUDA events around 20 back-to-back calls queued behind
 a device-side spin), it times:
 
-- B1 at K = 20 and K = 1 and B2 at K = 1: the old kernel on the old
-  ``gather_megaT``'s rows, and the old ``gather_megaT`` + the old kernel
-  (the old path); the new kernel on (table, rows), and
-  ``grid_rows`` + the new kernel (the new path);
-- the old ``gather_megaT``, this tree's ``gather_megaT`` and
-  ``grid_rows`` alone;
-- B1 at K = 1 and K = 20 on the first 128, 2,048, 16,384 and 65,536
-  points, old and new kernel (what a launch costs apart from its points);
+- the old kernel on the old ``gather_megaT``'s aux rows and the new one on
+  (``regmap.packed_aux``, rows); the old path (``gather_megaT(aux)`` + the
+  old kernel) and the new path (``grid_rows`` + the new kernel): one
+  polish evaluation each;
+- the old ``gather_megaT(aux)`` and ``grid_rows`` alone;
+- both kernels on the first 128, 2,048, 16,384 and 65,536 points (what a
+  launch costs apart from its points);
 - each kernel's own device time per launch from torch.profiler (CUDA
   kernel records, without the gaps between launches).
 
-Every kernel is held against the plain version with chip_smoke.py's
+Both kernels are held against the plain version with chip_smoke.py's
 tolerances. It prints the card line, one line per measurement and, last,
 one JSON object with every time. It exits non-zero without a card.
 """
@@ -87,77 +88,51 @@ def main():
         path = os.path.join(tmp, "berlin.rpl")
         gt = simulator_np.simulate_replay(path, cfg.meta, cfg.lidar, n_sweeps=4, skewed=True)
         inp = cs.kernel_inputs(torch, path, gt, cfg, dev)
-    N, ptsT = inp["N"], inp["ptsT"]
-    pts, mask, pose = inp["pts"], inp["mask"], inp["pose"]
-    regmap, regmap_g = inp["regmap"], inp["regmap_g"]
+    N, ptsT, scovT, params = inp["N"], inp["ptsT"], inp["scovT"], inp["p_aniso"]
+    pts, mask, pose, regmap, rows = inp["pts"], inp["mask"], inp["pose"], inp["regmap"], inp["rows"]
+    aux = regmap.packed_aux
+
+    def old_gather():
+        return old.gather_megaT(pts, mask, pose, regmap, cs.GRID, table="aux")
+
+    megaT = old_gather()
     result = {"card": card, "N": N, "times": {}, "scaling": {}, "profiled_us": {}}
-
-    cases = [  # label, kernel name, plain, params, regmap, rows, old megaT
-        ("B1 ndt_pair K=20", "ndt_pair", fused_math._ndt_pair_plain, inp["p_ndt"], regmap,
-         inp["rows"], old.gather_megaT(pts, mask, pose, regmap, cs.GRID)),
-        ("B1 ndt_pair K=1", "ndt_pair", fused_math._ndt_pair_plain, inp["p_ndt1"], regmap,
-         inp["rows"], old.gather_megaT(pts, mask, pose, regmap, cs.GRID)),
-        ("B2 gicp_pair K=1", "gicp_pair", fused_math._gicp_pair_plain, inp["p_gicp"], regmap_g,
-         inp["rows_g"], old.gather_megaT(pts, mask, pose, regmap_g, cs.GRID)),
-    ]
-    for label, name, plain, params, rmap, rows, megaT in cases:
-        ref = plain(params, ptsT, rmap.packed, rows)
-        old_kern = getattr(old, name)
-        new_kern = getattr(fused_math, name)
-        cs.log(f"{label}: old kernel, then the new one, against plain")
-        cs.compare(old_kern(params, ptsT, megaT), ref)
-        cs.compare(new_kern(params, ptsT, rmap.packed, rows), ref)
-        times = in_turns(torch, cs, {
-            "old_kernel": lambda: old_kern(params, ptsT, megaT),
-            "new_kernel": lambda: new_kern(params, ptsT, rmap.packed, rows),
-            "old_path": lambda: old_kern(params, ptsT, old.gather_megaT(pts, mask, pose, rmap, cs.GRID)),
-            "new_path": lambda: new_kern(
-                params, ptsT, rmap.packed, grid_rows(pts, mask, pose, rmap, cs.GRID)),
-        })
-        result["times"][label] = times
-        new = times["new_kernel"]["ms"]
-        cs.log(f"[{card}] {label}: " + "; ".join(
-            f"{k} {v['ms']:.4f} ms (rounds {v['min']:.4f}..{v['max']:.4f})" for k, v in times.items())
-            + f"; old/new kernel {times['old_kernel']['ms'] / new:.2f}x, "
-            f"path {times['old_path']['ms'] / times['new_path']['ms']:.2f}x")
-        result["profiled_us"][label] = {
-            "old_kernel": profiled_us(torch, lambda: old_kern(params, ptsT, megaT)),
-            "new_kernel": profiled_us(torch, lambda: new_kern(params, ptsT, rmap.packed, rows)),
-        }
-        cs.log(f"[{card}] {label} profiled device us per launch: {result['profiled_us'][label]}")
-
+    label = "B3 aniso_pair K=1"
+    ref = fused_math._aniso_pair_plain(params, ptsT, aux, rows, scovT)
+    cs.log(f"{label}: old kernel, then the new one, against plain")
+    cs.compare(old.aniso_pair(params, ptsT, megaT, scovT), ref)
+    cs.compare(fused_math.aniso_pair(params, ptsT, aux, rows, scovT), ref)
     times = in_turns(torch, cs, {
-        "old gather_megaT": lambda: old.gather_megaT(pts, mask, pose, regmap, cs.GRID),
-        "gather_megaT": lambda: fused_math.gather_megaT(pts, mask, pose, regmap, cs.GRID),
+        "old_kernel": lambda: old.aniso_pair(params, ptsT, megaT, scovT),
+        "new_kernel": lambda: fused_math.aniso_pair(params, ptsT, aux, rows, scovT),
+        "old_path": lambda: old.aniso_pair(params, ptsT, old_gather(), scovT),
+        "new_path": lambda: fused_math.aniso_pair(
+            params, ptsT, aux, grid_rows(pts, mask, pose, regmap, cs.GRID), scovT),
+        "old gather_megaT(aux)": old_gather,
         "grid_rows": lambda: grid_rows(pts, mask, pose, regmap, cs.GRID),
     })
-    result["times"]["row lookup"] = times
-    result["profiled_us"]["grid_rows"] = profiled_us(
-        torch, lambda: grid_rows(pts, mask, pose, regmap, cs.GRID))
-    cs.log(f"[{card}] grid_rows profiled device us per call: "
-           f"{result['profiled_us']['grid_rows']}")
-    cs.log(f"[{card}] " + "; ".join(f"{k} {v['ms']:.4f} ms" for k, v in times.items()))
+    result["times"][label] = times
+    cs.log(f"[{card}] {label}: " + "; ".join(
+        f"{k} {v['ms']:.4f} ms (rounds {v['min']:.4f}..{v['max']:.4f})" for k, v in times.items())
+        + f"; old/new kernel {times['old_kernel']['ms'] / times['new_kernel']['ms']:.2f}x, "
+        f"path {times['old_path']['ms'] / times['new_path']['ms']:.2f}x")
+    result["profiled_us"][label] = {
+        "old_kernel": profiled_us(torch, lambda: old.aniso_pair(params, ptsT, megaT, scovT)),
+        "new_kernel": profiled_us(torch, lambda: fused_math.aniso_pair(params, ptsT, aux, rows, scovT)),
+        "grid_rows": profiled_us(torch, lambda: grid_rows(pts, mask, pose, regmap, cs.GRID)),
+    }
+    cs.log(f"[{card}] {label} profiled device us per call: {result['profiled_us'][label]}")
 
-    tiles = inp["rows"][: N - N % 32].view(-1, 32)
-    copies = int(sum(torch.unique(t).numel() for t in tiles.cpu()))
-    slots = fused_math._table_rows(regmap.packed, inp["rows"])[: N - N % 32, 84:91] > 0.5
-    result["row_copies"] = {"points": N, "distinct_rows": int(torch.unique(inp["rows"]).numel()),
-                            "copies_with_per_tile_sharing": copies,
-                            "valid_pair_share": float(slots.float().mean()),
-                            "tile_slots_with_no_valid_point": float(
-                                (~slots.view(-1, 32, 7).any(1)).float().mean())}
-    cs.log(f"rows of the lo_svn map: {result['row_copies']}")
-    megaT = cases[1][-1]
-    for pk, label in ((inp["p_ndt1"], "K=1"), (inp["p_ndt"], "K=20")):
-        for n in (128, 2048, 16384, N):
-            pT, r, mT = ptsT[:, :n].contiguous(), inp["rows"][:n].contiguous(), megaT[:, :n].contiguous()
-            times = in_turns(torch, cs, {
-                "old_kernel": lambda: old.ndt_pair(pk, pT, mT),
-                "new_kernel": lambda: fused_math.ndt_pair(pk, pT, regmap.packed, r),
-            })
-            result["scaling"][f"{label} N={n}"] = {k: v["ms"] for k, v in times.items()}
-            cs.log(f"[{card}] B1 {label} on {n} points: old {times['old_kernel']['ms']:.4f} ms, "
-                   f"new {times['new_kernel']['ms']:.4f} ms")
+    for n in (128, 2048, 16384, N):
+        pT, r, mT = ptsT[:, :n].contiguous(), rows[:n].contiguous(), megaT[:, :n].contiguous()
+        sT = scovT[:, :n].contiguous()
+        times = in_turns(torch, cs, {
+            "old_kernel": lambda: old.aniso_pair(params, pT, mT, sT),
+            "new_kernel": lambda: fused_math.aniso_pair(params, pT, aux, r, sT),
+        })
+        result["scaling"][f"K=1 N={n}"] = {k: v["ms"] for k, v in times.items()}
+        cs.log(f"[{card}] B3 K=1 on {n} points: old {times['old_kernel']['ms']:.4f} ms, "
+               f"new {times['new_kernel']['ms']:.4f} ms")
     cs.log(card)
     cs.log(json.dumps(result))
     return 0

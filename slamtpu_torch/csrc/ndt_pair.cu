@@ -1,42 +1,52 @@
 // Pair kernels of the registration objective, written for Hopper (sm_90a).
 //
-// Replaces the Pallas kernels of slamtpu/ndt/pallas_math.py:
-//   ndt_pair_kernel<false> <- _kernel with gicp=False (+ _finish_block): the
-//                             NDT pair math of SVN stage 1 and Newton;
-//   ndt_pair_kernel<true>  <- _kernel with gicp=True (+ _finish_block): the
-//                             trimmed isotropic VGICP cost of odom_ndt's
-//                             GICP engine (its map bakes (C + s^2 I)^-1 into
-//                             the icov slots);
-//   aniso_pair_kernel      <- _kernel_aniso (+ _finish_block): plane-to-plane
-//                             GICP, the SVN polish.
+// Replaces the Pallas kernels of slamtpu/ndt/pallas_math.py, one kernel
+// template with the cost as its parameter:
+//   ndt_pair_kernel<kNdt>   <- _kernel with gicp=False (+ _finish_block): the
+//                              NDT pair math of SVN stage 1 and Newton (B1);
+//   ndt_pair_kernel<kGicp>  <- _kernel with gicp=True (+ _finish_block): the
+//                              trimmed isotropic VGICP cost of odom_ndt's
+//                              GICP engine (its map bakes (C + s^2 I)^-1 into
+//                              the icov slots) (B2);
+//   ndt_pair_kernel<kAniso> <- _kernel_aniso (+ _finish_block): plane-to-plane
+//                              GICP, the SVN polish (B3).
 // All reduce to the same 44 sums per pose: [0] score, [1:4] grad omega,
 // [4:7] grad v, [7:43] Gauss-Newton Hessian row-major in [omega, v],
 // [43] count of contributing pairs. The caller adds lambda * I.
 //
 // params is (K, 16): R row-major (9), t (3), d1, d2, mode, max_mahal. The
 // mode slot is written as the reference writes it (1 for the VGICP cost)
-// but not read: the kernel's template flag selects the cost, as the
-// reference's trace-time ``gicp`` flag does. In the VGICP cost d1 is unused
-// and d2 carries max_corr_dist^2.
+// but not read: the kernel's template parameter selects the cost, as the
+// reference's trace-time ``gicp`` flag and its choice of kernel do. In the
+// VGICP and plane-to-plane costs d1 is unused and d2 carries
+// max_corr_dist^2.
 //
-// --- ndt_pair_kernel<kGicp> (B1, B2) ---
+// Inputs: a RegMap table (R, 96) row-major (a point's 96-float mega row:
+// 7 DIRECT7 slots of mean(3) + a 3x3 matrix(9) at 12 s, validity flags at
+// 84..90; the last row R - 1 is the all-zero sentinel) and each point's row
+// index rows (N,) int32 (``regmap.grid_rows``). B1 and B2 read the icov
+// table (``regmap.packed``); B3 reads the aux table (``regmap.packed_aux``:
+// the slot's mean and plane-regularized target covariance C_t) and each
+// point's body-frame source covariance C_src, scovT (9, N) planar. The
+// kernel gathers the rows itself: the reference gathers them outside its
+// kernels only because Mosaic cannot gather from large tables.
 //
-// Inputs: the RegMap table (R, 96) row-major (a point's 96-float mega row:
-// 7 DIRECT7 slots of mean(3) + icov(9) at 12 s, validity flags at 84..90;
-// the last row R - 1 is the all-zero sentinel) and each point's row index
-// rows (N,) int32 (``fused_math.point_row_index``). The kernel gathers the
-// rows itself: the reference gathers them outside its kernel only because
-// Mosaic cannot gather from large tables.
+// B3 per pair: S = C_t + R C_src R^T, its closed-form adjugate inverse
+// (det taken as 1 unless |det| > 1e-30, as the reference), then B2's
+// trimmed quadratic with S^-1 in place of icov. R C_src R^T is formed once
+// per point-pose; only the upper triangles of R C_src R^T, S and S^-1 are
+// computed (all are symmetric).
 //
 // What bounds it on the H100. At the SVN's K = 20 poses, fp32 issue: each
 // point-pose costs some 400 flops (with the Hessian tail in the rotated
 // frame) plus a 29-value warp reduction, against one 368-byte row that all
 // K poses share; a thread holds its row in registers (84 + 1) and two poses'
 // work at a time, so registers (168 a thread at 12 warps an SM) cap the
-// warps that hide latency. At the Newton shape (K = 1), latency: a launch
-// is a chain of dependent steps (row indices, row copies, one pose, the
-// two-level cross-block sum) of ~10 us before its points count, and the
-// row copies contend where many points read the same row.
+// warps that hide latency (B3's per-pair inverse fits the same budget). At
+// K = 1 (Newton, the polish), latency: a launch is a chain of dependent
+// steps (row indices, row copies, one pose, the two-level cross-block sum)
+// of ~10 us before its points count, and the row copies contend where many
+// points read the same row.
 //
 // Design.
 // - Persistent blocks (three per SM, 4 warps each) walk 32-point tiles in a
@@ -55,6 +65,8 @@
 //   (j + p) mod 4, so every warp works at K = 1 and the pairs of K = 20
 //   spread over the warps; two poses at once give the scheduler two
 //   independent chains (four spill at the register cap).
+//   B3's lanes also load their points' 9 source-covariance values straight
+//   from global memory, coalesced, as they load the points.
 // - After each pose a warp reduce-scatters its 29 per-point sums with 31
 //   shuffles (lane l ends with sum l) and adds them to its own shared
 //   accumulator of that pose. The block sums its warps in warp order into
@@ -65,16 +77,6 @@
 //   resets its ticket. One launch, no atomics on the data, so results
 //   repeat bit for bit; the tiling depends on N and the card only, so a
 //   pose's sums do not depend on K or on the other poses.
-//
-// --- aniso_pair_kernel (B3) ---
-//
-// One thread per point over pre-gathered planar inputs ptsT (3, N), megaT
-// (96, N) (the aux payload: mean + plane-regularized target covariance per
-// slot) and scovT (9, N); the grid's second axis runs over the K poses. The
-// block reduces its 29 sums in shared memory in a fixed tree order into a
-// per-block partial; a second kernel sums the partials of each pose in
-// block order, in double. The ragged edge is masked in the kernel; padding
-// points carry the all-zero sentinel row.
 
 #include <cuda_runtime.h>
 
@@ -82,7 +84,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+enum Cost { kNdt = 0, kGicp = 1, kAniso = 2 };  // B1, B2, B3
+
 constexpr int kAcc = 29;  // score, count, grad(6), 21 unique Hessian terms
 constexpr int kOut = 44;
 
@@ -103,18 +106,6 @@ constexpr unsigned char kNoRow = 0xff;                 // fill_slot: no row for 
 constexpr size_t kRingFloats = (size_t)kStages * kTile * kPitch;
 // the last block sums the K poses' partials into the ring, in double
 static_assert(kMaxPoses * kAcc * sizeof(double) <= kRingFloats * sizeof(float), "ring");
-
-struct Pose {
-  float R[9];
-  float t[3];
-};
-
-__device__ __forceinline__ void load_pose(const float* __restrict__ p, Pose& ps) {
-#pragma unroll
-  for (int c = 0; c < 9; ++c) ps.R[c] = p[c];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) ps.t[c] = p[9 + c];
-}
 
 // --- mbarrier and bulk-copy primitives (PTX) ---
 
@@ -162,7 +153,7 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t by
       : "memory");
 }
 
-// --- B1 / B2 ---
+// --- the pair math ---
 
 __device__ __forceinline__ int upper3(int a, int b) {
   const int i = min(a, b), j = max(a, b);
@@ -171,30 +162,36 @@ __device__ __forceinline__ int upper3(int a, int b) {
 
 // One point's 29 sums at NP poses (params p, p + pstride, ...) into
 // v[q][0..28] (v[q][29..31] = 0), in the rotated frame y = R x: with
-// b = sum f icov xr and M = sum f icov over the slots, [0] score, [1] count,
-// [2..4] y x b, [5..7] b, [8..13] hat(y) M hat(y)^T upper (00 01 02 11 12
-// 22), [14..22] hat(y) M (row-major), [23..28] M upper. The pose's gradient
-// and Hessian are R^T (sum) R of these (rotate_output): x cross (R^T b) =
-// R^T (y cross b) and hat(x) R^T M R = R^T hat(y) M R, so the per-point
-// tail needs no R. The poses' arithmetic is written once and interleaved
-// (NP = 2 gives the scheduler two independent chains); each pose's result
-// does not depend on NP.
-// kGicp = false: NDT pair weight, score -d1 e, f = d1 d2 e (exponent cap,
-// MIN_FACTOR cut). kGicp = true: the pair counts if valid, mahal <=
-// max_mahal and |xr|^2 <= d2; score -mahal, f = -2.
-template <bool kGicp, int NP>
+// b = sum f W xr and M = sum f W over the slots (W the pair's icov, or S^-1
+// for B3), [0] score, [1] count, [2..4] y x b, [5..7] b, [8..13]
+// hat(y) M hat(y)^T upper (00 01 02 11 12 22), [14..22] hat(y) M
+// (row-major), [23..28] M upper. The pose's gradient and Hessian are
+// R^T (sum) R of these (rotate_output): x cross (R^T b) = R^T (y cross b)
+// and hat(x) R^T M R = R^T hat(y) M R, so the per-point tail needs no R.
+// The poses' arithmetic is written once and interleaved (NP = 2 gives the
+// scheduler two independent chains); each pose's result does not depend
+// on NP.
+// kNdt: NDT pair weight, score -d1 e, f = d1 d2 e (exponent cap, MIN_FACTOR
+// cut). kGicp and kAniso: the pair counts if valid, mahal <= max_mahal and
+// |xr|^2 <= d2; score -mahal, f = -2. kAniso reads the slot's target
+// covariance C_t where the others read icov, and sc, the point's source
+// covariance (row-major), which the others do not read.
+template <Cost C, int NP>
 __device__ __forceinline__ void pair_terms(const float* __restrict__ p, int pstride, float x0,
-                                           float x1, float x2, const float (&row)[84],
-                                           unsigned valid, float (&v)[NP][32]) {
+                                           float x1, float x2, const float (&sc)[9],
+                                           const float (&row)[84], unsigned valid,
+                                           float (&v)[NP][32]) {
   float y[NP][3], tp[NP][3], d1[NP], d2[NP], max_mahal[NP];
   float score[NP], count[NP], b[NP][3], M[NP][9];
+  float rc[NP][6];  // kAniso: R C_src R^T, upper (00 01 02 11 12 22)
 #pragma unroll
   for (int q = 0; q < NP; ++q) {
     const float4* pp = reinterpret_cast<const float4*>(p + pstride * q);
     const float4 p0 = pp[0], p1 = pp[1], p2 = pp[2], p3 = pp[3];
-    y[q][0] = p0.x * x0 + p0.y * x1 + p0.z * x2;
-    y[q][1] = p0.w * x0 + p1.x * x1 + p1.y * x2;
-    y[q][2] = p1.z * x0 + p1.w * x1 + p2.x * x2;
+    const float R[9] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w, p2.x};
+    y[q][0] = R[0] * x0 + R[1] * x1 + R[2] * x2;
+    y[q][1] = R[3] * x0 + R[4] * x1 + R[5] * x2;
+    y[q][2] = R[6] * x0 + R[7] * x1 + R[8] * x2;
     tp[q][0] = y[q][0] + p2.y;
     tp[q][1] = y[q][1] + p2.z;
     tp[q][2] = y[q][2] + p2.w;
@@ -206,6 +203,22 @@ __device__ __forceinline__ void pair_terms(const float* __restrict__ p, int pstr
     for (int c = 0; c < 3; ++c) b[q][c] = 0.f;
 #pragma unroll
     for (int c = 0; c < 9; ++c) M[q][c] = 0.f;
+    if constexpr (C == kAniso) {
+      float RC[3][3];  // R C_src
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          RC[a][c] = R[3 * a] * sc[c] + R[3 * a + 1] * sc[3 + c] + R[3 * a + 2] * sc[6 + c];
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+#pragma unroll
+        for (int c = a; c < 3; ++c)
+          rc[q][upper3(a, c)] =
+              RC[a][0] * R[3 * c] + RC[a][1] * R[3 * c + 1] + RC[a][2] * R[3 * c + 2];
+      }
+    }
   }
 #pragma unroll
   for (int s = 0; s < 7; ++s) {
@@ -215,34 +228,57 @@ __device__ __forceinline__ void pair_terms(const float* __restrict__ p, int pstr
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
       const float xr0 = tp[q][0] - sl[0], xr1 = tp[q][1] - sl[1], xr2 = tp[q][2] - sl[2];
-      const float icx0 = ic[0] * xr0 + ic[1] * xr1 + ic[2] * xr2;
-      const float icx1 = ic[3] * xr0 + ic[4] * xr1 + ic[5] * xr2;
-      const float icx2 = ic[6] * xr0 + ic[7] * xr1 + ic[8] * xr2;
-      const float mahal = fmaxf(xr0 * icx0 + xr1 * icx1 + xr2 * icx2, 0.f);
+      float w[9];  // the pair's weight matrix: icov, or S^-1
+      if constexpr (C == kAniso) {
+        // fused symmetric S = C_t + rc, closed-form adjugate inverse
+        const float s00 = ic[0] + rc[q][0], s01 = ic[1] + rc[q][1], s02 = ic[2] + rc[q][2];
+        const float s11 = ic[4] + rc[q][3], s12 = ic[5] + rc[q][4], s22 = ic[8] + rc[q][5];
+        const float c00 = s11 * s22 - s12 * s12;
+        const float c01 = s02 * s12 - s01 * s22;
+        const float c02 = s01 * s12 - s02 * s11;
+        const float c11 = s00 * s22 - s02 * s02;
+        const float c12 = s01 * s02 - s00 * s12;
+        const float c22 = s00 * s11 - s01 * s01;
+        const float det = s00 * c00 + s01 * c01 + s02 * c02;
+        const float inv_det = 1.f / (fabsf(det) > 1e-30f ? det : 1.f);
+        w[0] = c00 * inv_det;
+        w[1] = w[3] = c01 * inv_det;
+        w[2] = w[6] = c02 * inv_det;
+        w[4] = c11 * inv_det;
+        w[5] = w[7] = c12 * inv_det;
+        w[8] = c22 * inv_det;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 9; ++c) w[c] = ic[c];
+      }
+      const float wx0 = w[0] * xr0 + w[1] * xr1 + w[2] * xr2;
+      const float wx1 = w[3] * xr0 + w[4] * xr1 + w[5] * xr2;
+      const float wx2 = w[6] * xr0 + w[7] * xr1 + w[8] * xr2;
+      const float mahal = fmaxf(xr0 * wx0 + xr1 * wx1 + xr2 * wx2, 0.f);
       bool ok;
       float f, pair_score;
-      if constexpr (kGicp) {
-        const float dist2 = xr0 * xr0 + xr1 * xr1 + xr2 * xr2;
-        ok = valid_s && (mahal <= max_mahal[q]) && (dist2 <= d2[q]);
-        f = ok ? -2.f : 0.f;
-        pair_score = -mahal;
-      } else {
+      if constexpr (C == kNdt) {
         const float expo = 0.5f * d2[q] * mahal;
         ok = valid_s && (expo <= 50.0f);  // MAX_EXPONENT_ARG
         const float e = expf(-expo);  // used only where ok
         f = d1[q] * d2[q] * e;
         f = (ok && fabsf(f) >= 1e-15f) ? f : 0.f;  // MIN_FACTOR
         pair_score = -d1[q] * e;
+      } else {
+        const float dist2 = xr0 * xr0 + xr1 * xr1 + xr2 * xr2;
+        ok = valid_s && (mahal <= max_mahal[q]) && (dist2 <= d2[q]);
+        f = ok ? -2.f : 0.f;
+        pair_score = -mahal;
       }
       if (ok) {
         score[q] += pair_score;
         count[q] += 1.f;
       }
-      b[q][0] += f * icx0;
-      b[q][1] += f * icx1;
-      b[q][2] += f * icx2;
+      b[q][0] += f * wx0;
+      b[q][1] += f * wx1;
+      b[q][2] += f * wx2;
 #pragma unroll
-      for (int c = 0; c < 9; ++c) M[q][c] += f * ic[c];
+      for (int c = 0; c < 9; ++c) M[q][c] += f * w[c];
     }
   }
 #pragma unroll
@@ -346,13 +382,14 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&v)[32], int lane) {
 // NP poses of one point per lane, pose_stride apart (params p + 16
 // pose_stride q): the warp's sums of each added to its accumulators
 // acc[32 pose_stride q] (the lane's own column).
-template <bool kGicp, int NP>
+template <Cost C, int NP>
 __device__ __forceinline__ void pose_block(const float* __restrict__ p, int pose_stride, float x0,
-                                           float x1, float x2, const float (&row)[84],
-                                           unsigned valid, bool have, int lane, float* acc) {
+                                           float x1, float x2, const float (&sc)[9],
+                                           const float (&row)[84], unsigned valid, bool have,
+                                           int lane, float* acc) {
   float v[NP][32];
   if (have) {
-    pair_terms<kGicp, NP>(p, 16 * pose_stride, x0, x1, x2, row, valid, v);
+    pair_terms<C, NP>(p, 16 * pose_stride, x0, x1, x2, sc, row, valid, v);
   } else {
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
@@ -440,16 +477,19 @@ __device__ __forceinline__ void fill_slot(int j, int s, const int* __restrict__ 
 // tiles) and at K = 20 each tile's ten pairs split over the warps; the
 // mapping does not depend on K. Warp j mod kStages (always a reader of
 // tile j) refills tile j's slot with tile j + kStages once all of its
-// readers (min(ceil(K / 2), kPairWarps) warps) have their rows. Dynamic shared memory: the ring (kStages x kTile rows of
-// kPitch floats), the K poses' params, each warp's 32 accumulators per
-// pose, and the ring's lead lanes (fill_slot).
+// readers (min(ceil(K / 2), kPairWarps) warps) have their rows. Dynamic
+// shared memory: the ring (kStages x kTile rows of kPitch floats), the K
+// poses' params, each warp's 32 accumulators per pose, and the ring's
+// lead lanes (fill_slot).
+// scovT: (9, N) source covariances (kAniso only; unread otherwise).
 // partials: (gridDim.x, K, kAcc) floats and gsums: (groups, K, kAcc)
 // doubles of scratch; tickets: 1 + groups zeroed counters, which the
 // finishing blocks reset; out: (K, 44).
-template <bool kGicp>
+template <Cost C>
 __global__ void __launch_bounds__(kPairThreads, kBlocksPerSM)
 ndt_pair_kernel(const float* __restrict__ params, const float* __restrict__ ptsT,
-                const float* __restrict__ table, const int* __restrict__ rows, int N, int K, int R,
+                const float* __restrict__ table, const int* __restrict__ rows,
+                const float* __restrict__ scovT, int N, int K, int R,
                 float* __restrict__ partials, double* __restrict__ gsums,
                 unsigned int* __restrict__ tickets, float* __restrict__ out) {
   static_assert(kStages == kPairWarps, "warp s owns ring slot s");
@@ -487,10 +527,17 @@ ndt_pair_kernel(const float* __restrict__ params, const float* __restrict__ ptsT
     if (2 * p0 < K) {
       const int i = ((int)blockIdx.x + j * nb) * kTile + lane;
       float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+      float sc[9];
+#pragma unroll
+      for (int c = 0; c < 9; ++c) sc[c] = 0.f;
       if (i < N) {
         x0 = ptsT[i];
         x1 = ptsT[(size_t)N + i];
         x2 = ptsT[(size_t)2 * N + i];
+        if constexpr (C == kAniso) {
+#pragma unroll
+          for (int c = 0; c < 9; ++c) sc[c] = scovT[(size_t)c * N + i];
+        }
       }
       mbar_wait(&bars[s], (j / kStages) & 1);
       const int ld = lead[s * kTile + lane];
@@ -519,11 +566,11 @@ ndt_pair_kernel(const float* __restrict__ params, const float* __restrict__ ptsT
         float* acc = wacc + warp * K * 32 + lane;
         for (int k = 2 * p0; k < K; k += 2 * kPairWarps) {
           if (k + 1 < K)
-            pose_block<kGicp, 2>(sparams + 16 * k, 1, x0, x1, x2, row, valid, have, lane,
-                                 acc + 32 * k);
+            pose_block<C, 2>(sparams + 16 * k, 1, x0, x1, x2, sc, row, valid, have, lane,
+                             acc + 32 * k);
           else
-            pose_block<kGicp, 1>(sparams + 16 * k, 1, x0, x1, x2, row, valid, have, lane,
-                                 acc + 32 * k);
+            pose_block<C, 1>(sparams + 16 * k, 1, x0, x1, x2, sc, row, valid, have, lane,
+                             acc + 32 * k);
         }
       }
     }
@@ -574,252 +621,52 @@ ndt_pair_kernel(const float* __restrict__ params, const float* __restrict__ ptsT
   if (tid == 0) tickets[0] = 0u;
 }
 
-// --- B3 ---
-
-// acc layout: [0] score, [1] count, [2..4] grad omega, [5..7] grad v,
-// [8..13] H_ww upper (00 01 02 11 12 22), [14..22] H_wv (row-major),
-// [23..28] H_vv upper (00 01 02 11 12 22).
-__device__ __forceinline__ void finish_point(const Pose& ps, float x0, float x1, float x2,
-                                             float b0, float b1, float b2, const float M[9],
-                                             float* acc) {
-  const float* R = ps.R;
-  // gradient: q = R^T b; g_w = x cross q; g_v = q
-  const float q0 = R[0] * b0 + R[3] * b1 + R[6] * b2;
-  const float q1 = R[1] * b0 + R[4] * b1 + R[7] * b2;
-  const float q2 = R[2] * b0 + R[5] * b1 + R[8] * b2;
-  acc[2] += x1 * q2 - x2 * q1;
-  acc[3] += x2 * q0 - x0 * q2;
-  acc[4] += x0 * q1 - x1 * q0;
-  acc[5] += q0;
-  acc[6] += q1;
-  acc[7] += q2;
-  // P = R^T M R
-  float P[3][3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-#pragma unroll
-    for (int bc = 0; bc < 3; ++bc) {
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-#pragma unroll
-        for (int j = 0; j < 3; ++j) s += (R[3 * i + a] * R[3 * j + bc]) * M[3 * i + j];
-      }
-      P[a][bc] = s;
-    }
-  }
-  // Q[:, bc] = x cross P[:, bc]  (H_wv = Q); H_ww[a, :] = x cross Q[a, :]
-  float Q[3][3];
-#pragma unroll
-  for (int bc = 0; bc < 3; ++bc) {
-    Q[0][bc] = x1 * P[2][bc] - x2 * P[1][bc];
-    Q[1][bc] = x2 * P[0][bc] - x0 * P[2][bc];
-    Q[2][bc] = x0 * P[1][bc] - x1 * P[0][bc];
-  }
-  float W[3][3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    W[a][0] = x1 * Q[a][2] - x2 * Q[a][1];
-    W[a][1] = x2 * Q[a][0] - x0 * Q[a][2];
-    W[a][2] = x0 * Q[a][1] - x1 * Q[a][0];
-  }
-  acc[8] += W[0][0];
-  acc[9] += W[0][1];
-  acc[10] += W[0][2];
-  acc[11] += W[1][1];
-  acc[12] += W[1][2];
-  acc[13] += W[2][2];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-#pragma unroll
-    for (int bc = 0; bc < 3; ++bc) acc[14 + 3 * a + bc] += Q[a][bc];
-  }
-  acc[23] += P[0][0];
-  acc[24] += P[0][1];
-  acc[25] += P[0][2];
-  acc[26] += P[1][1];
-  acc[27] += P[1][2];
-  acc[28] += P[2][2];
-}
-
-// Fixed-order tree reduction of the block's kAcc sums; thread 0 writes the
-// 44-wide partial (Hessian mirrored from its unique terms).
-__device__ __forceinline__ void block_reduce_store(float* acc, float* __restrict__ partial) {
-  __shared__ float sh[kAcc][kThreads];
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int c = 0; c < kAcc; ++c) sh[c][tid] = acc[c];
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-#pragma unroll
-      for (int c = 0; c < kAcc; ++c) sh[c][tid] += sh[c][tid + s];
-    }
-    __syncthreads();
-  }
-  if (tid == 0) {
-    float o[kOut];
-    o[0] = sh[0][0];
-    o[43] = sh[1][0];
-    for (int c = 0; c < 6; ++c) o[1 + c] = sh[2 + c][0];
-    const int up[3][3] = {{0, 1, 2}, {1, 3, 4}, {2, 4, 5}};
-    for (int a = 0; a < 3; ++a) {
-      for (int bc = 0; bc < 3; ++bc) {
-        o[7 + 6 * a + bc] = sh[8 + up[a][bc]][0];                 // H_ww
-        o[7 + 6 * a + 3 + bc] = sh[14 + 3 * a + bc][0];           // H_wv
-        o[7 + 6 * (3 + bc) + a] = sh[14 + 3 * a + bc][0];         // H_vw
-        o[7 + 6 * (3 + a) + 3 + bc] = sh[23 + up[a][bc]][0];      // H_vv
-      }
-    }
-    for (int c = 0; c < kOut; ++c) partial[c] = o[c];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-aniso_pair_kernel(const float* __restrict__ params, const float* __restrict__ ptsT,
-                  const float* __restrict__ megaT, const float* __restrict__ scovT, int N,
-                  float* __restrict__ partials) {
-  const int k = blockIdx.y;
-  Pose ps;
-  load_pose(params + 16 * k, ps);
-  const float corr2 = params[16 * k + 13];
-  const float max_mahal = params[16 * k + 15];
-  float acc[kAcc];
-#pragma unroll
-  for (int c = 0; c < kAcc; ++c) acc[c] = 0.f;
-
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i < N) {
-    const float x0 = ptsT[i], x1 = ptsT[N + i], x2 = ptsT[2 * N + i];
-    const float* R = ps.R;
-    const float tp0 = R[0] * x0 + R[1] * x1 + R[2] * x2 + ps.t[0];
-    const float tp1 = R[3] * x0 + R[4] * x1 + R[5] * x2 + ps.t[1];
-    const float tp2 = R[6] * x0 + R[7] * x1 + R[8] * x2 + ps.t[2];
-    // rc = R C_src R^T (C_src row-major in scovT)
-    float sc[9];
-#pragma unroll
-    for (int c = 0; c < 9; ++c) sc[c] = scovT[(size_t)c * N + i];
-    float RC[3][3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-#pragma unroll
-      for (int b = 0; b < 3; ++b)
-        RC[a][b] = R[3 * a] * sc[b] + R[3 * a + 1] * sc[3 + b] + R[3 * a + 2] * sc[6 + b];
-    }
-    float rc[3][3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-#pragma unroll
-      for (int b = 0; b < 3; ++b)
-        rc[a][b] = RC[a][0] * R[3 * b] + RC[a][1] * R[3 * b + 1] + RC[a][2] * R[3 * b + 2];
-    }
-    float b0 = 0.f, b1 = 0.f, b2 = 0.f;
-    float M[9];
-#pragma unroll
-    for (int c = 0; c < 9; ++c) M[c] = 0.f;
-#pragma unroll
-    for (int s = 0; s < 7; ++s) {
-      const float* row = megaT + (size_t)(12 * s) * N + i;
-      const float xr0 = tp0 - row[0];
-      const float xr1 = tp1 - row[(size_t)N];
-      const float xr2 = tp2 - row[(size_t)2 * N];
-      const float* ct = row + (size_t)3 * N;
-      const bool valid = megaT[(size_t)(84 + s) * N + i] > 0.5f;
-      // fused symmetric S = C_t + rc, closed-form adjugate inverse
-      const float s00 = ct[0] + rc[0][0];
-      const float s01 = ct[(size_t)N] + rc[0][1];
-      const float s02 = ct[(size_t)2 * N] + rc[0][2];
-      const float s11 = ct[(size_t)4 * N] + rc[1][1];
-      const float s12 = ct[(size_t)5 * N] + rc[1][2];
-      const float s22 = ct[(size_t)8 * N] + rc[2][2];
-      const float c00 = s11 * s22 - s12 * s12;
-      const float c01 = s02 * s12 - s01 * s22;
-      const float c02 = s01 * s12 - s02 * s11;
-      const float c11 = s00 * s22 - s02 * s02;
-      const float c12 = s01 * s02 - s00 * s12;
-      const float c22 = s00 * s11 - s01 * s01;
-      const float det = s00 * c00 + s01 * c01 + s02 * c02;
-      const float inv_det = 1.f / (fabsf(det) > 1e-30f ? det : 1.f);
-      const float i00 = c00 * inv_det, i01 = c01 * inv_det, i02 = c02 * inv_det;
-      const float i11 = c11 * inv_det, i12 = c12 * inv_det, i22 = c22 * inv_det;
-      const float icx0 = i00 * xr0 + i01 * xr1 + i02 * xr2;
-      const float icx1 = i01 * xr0 + i11 * xr1 + i12 * xr2;
-      const float icx2 = i02 * xr0 + i12 * xr1 + i22 * xr2;
-      const float mahal = fmaxf(xr0 * icx0 + xr1 * icx1 + xr2 * icx2, 0.f);
-      const float dist2 = xr0 * xr0 + xr1 * xr1 + xr2 * xr2;
-      const bool ok = valid && (mahal <= max_mahal) && (dist2 <= corr2);
-      const float f = ok ? -2.f : 0.f;
-      if (ok) {
-        acc[0] += -mahal;
-        acc[1] += 1.f;
-      }
-      b0 += f * icx0;
-      b1 += f * icx1;
-      b2 += f * icx2;
-      M[0] += f * i00;
-      M[1] += f * i01;
-      M[2] += f * i02;
-      M[3] += f * i01;
-      M[4] += f * i11;
-      M[5] += f * i12;
-      M[6] += f * i02;
-      M[7] += f * i12;
-      M[8] += f * i22;
-    }
-    finish_point(ps, x0, x1, x2, b0, b1, b2, M, acc);
-  }
-  block_reduce_store(acc, partials + ((size_t)k * gridDim.x + blockIdx.x) * kOut);
-}
-
-// out[k, c] = sum over blocks of partials[k, b, c], in block order, in double.
-__global__ void reduce_partials_kernel(const float* __restrict__ partials, int n_blocks,
-                                       float* __restrict__ out) {
-  const int k = blockIdx.x;
-  const int c = threadIdx.x;
-  if (c >= kOut) return;
-  double s = 0.0;
-  const float* p = partials + (size_t)k * n_blocks * kOut + c;
-  for (int b = 0; b < n_blocks; ++b) s += (double)p[(size_t)b * kOut];
-  out[k * kOut + c] = (float)s;
-}
-
 // Lets the kernel take `smem` bytes of dynamic shared memory, with the SM's
 // unified L1 / shared memory split all to shared memory (kBlocksPerSM
 // blocks of ~59 KB at K = 20). Done once per size.
-template <bool kGicp>
+template <Cost C>
 cudaError_t grant_smem(size_t smem) {
   static size_t smem_set = 0;  // the largest dynamic shared memory granted so far
   if (smem <= smem_set) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(ndt_pair_kernel<kGicp>,
+  cudaError_t e = cudaFuncSetAttribute(ndt_pair_kernel<C>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(ndt_pair_kernel<kGicp>, cudaFuncAttributePreferredSharedMemoryCarveout,
+    e = cudaFuncSetAttribute(ndt_pair_kernel<C>, cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e == cudaSuccess) smem_set = smem;
   return e;
 }
 
-template <bool kGicp>
+template <Cost C>
 int pair_launch(const float* params, const float* ptsT, const float* table, const int* rows,
-                int N, int K, int R, int grid, float* partials, double* gsums,
-                unsigned int* tickets, float* out, cudaStream_t st) {
+                const float* scovT, int N, int K, int R, int grid, float* partials,
+                double* gsums, unsigned int* tickets, float* out, cudaStream_t st) {
   if (K <= 0) return 0;
   if (K > kMaxPoses || R <= 0) return (int)cudaErrorInvalidValue;
   if (N <= 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * K * kOut, st);
   if (grid <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = pair_smem_bytes(K);
-  const cudaError_t e = grant_smem<kGicp>(smem);
+  const cudaError_t e = grant_smem<C>(smem);
   if (e != cudaSuccess) return (int)e;
-  ndt_pair_kernel<kGicp><<<grid, kPairThreads, smem, st>>>(params, ptsT, table, rows, N, K, R,
-                                                          partials, gsums, tickets, out);
+  ndt_pair_kernel<C><<<grid, kPairThreads, smem, st>>>(params, ptsT, table, rows, scovT, N, K, R,
+                                                      partials, gsums, tickets, out);
   return (int)cudaGetLastError();
+}
+
+template <Cost C>
+int blocks_per_sm(int K) {
+  const size_t smem = pair_smem_bytes(K);
+  int n = 0;
+  if (grant_smem<C>(smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, ndt_pair_kernel<C>, kPairThreads, smem) !=
+          cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace
 
 extern "C" {
-
-int ndt_pair_threads() { return kThreads; }
 
 int ndt_pair_max_poses() { return kMaxPoses; }
 
@@ -827,8 +674,9 @@ int ndt_pair_acc() { return kAcc; }
 
 int ndt_pair_group() { return kGroup; }
 
-// Persistent grid of the B1/B2 kernel for N points on `device`: the tile
-// count, capped at kBlocksPerSM blocks per SM (independent of K). 0 on error.
+// Persistent grid of the pair kernel for N points on `device`: the tile
+// count, capped at kBlocksPerSM blocks per SM (independent of K and of the
+// cost). 0 on error.
 int ndt_pair_grid(int N, int device) {
   int sms = 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
@@ -837,15 +685,15 @@ int ndt_pair_grid(int N, int device) {
   return n_tiles < kBlocksPerSM * sms ? n_tiles : kBlocksPerSM * sms;
 }
 
-// Blocks of the B1 kernel one SM holds at K poses; -1 on error.
-int ndt_pair_blocks_per_sm(int K) {
-  const size_t smem = pair_smem_bytes(K);
-  int n = 0;
-  if (grant_smem<false>(smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, ndt_pair_kernel<false>, kPairThreads,
-                                                    smem) != cudaSuccess)
-    return -1;
-  return n;
+// Blocks of the kernel of `cost` (0 B1, 1 B2, 2 B3) one SM holds at K
+// poses; -1 on error.
+int ndt_pair_blocks_per_sm(int K, int cost) {
+  switch (cost) {
+    case kNdt: return blocks_per_sm<kNdt>(K);
+    case kGicp: return blocks_per_sm<kGicp>(K);
+    case kAniso: return blocks_per_sm<kAniso>(K);
+    default: return -1;
+  }
 }
 
 const char* ndt_pair_error_string(int code) {
@@ -859,32 +707,24 @@ const char* ndt_pair_error_string(int code) {
 int ndt_pair_launch(const float* params, const float* ptsT, const float* table, const int* rows,
                     int N, int K, int R, int grid, float* partials, double* gsums,
                     unsigned int* tickets, float* out, void* stream) {
-  return pair_launch<false>(params, ptsT, table, rows, N, K, R, grid, partials, gsums,
-                            tickets, out, (cudaStream_t)stream);
+  return pair_launch<kNdt>(params, ptsT, table, rows, nullptr, N, K, R, grid, partials, gsums,
+                           tickets, out, (cudaStream_t)stream);
 }
 
 int gicp_pair_launch(const float* params, const float* ptsT, const float* table, const int* rows,
                      int N, int K, int R, int grid, float* partials, double* gsums,
                      unsigned int* tickets, float* out, void* stream) {
-  return pair_launch<true>(params, ptsT, table, rows, N, K, R, grid, partials, gsums,
-                           tickets, out, (cudaStream_t)stream);
+  return pair_launch<kGicp>(params, ptsT, table, rows, nullptr, N, K, R, grid, partials, gsums,
+                            tickets, out, (cudaStream_t)stream);
 }
 
-// partials: (K, ceil(N / threads), 44) scratch; out: (K, 44).
-int aniso_pair_launch(const float* params, const float* ptsT, const float* megaT,
-                      const float* scovT, int N, int K, float* partials, float* out,
-                      void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int n_blocks = (N + kThreads - 1) / kThreads;
-  if (K <= 0) return 0;
-  if (n_blocks > 0) {
-    aniso_pair_kernel<<<dim3(n_blocks, K), kThreads, 0, st>>>(params, ptsT, megaT, scovT, N,
-                                                               partials);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  reduce_partials_kernel<<<K, 64, 0, st>>>(partials, n_blocks, out);
-  return (int)cudaGetLastError();
+// As ndt_pair_launch, over the aux table, with scovT: (9, N) source
+// covariances, planar.
+int aniso_pair_launch(const float* params, const float* ptsT, const float* table, const int* rows,
+                      const float* scovT, int N, int K, int R, int grid, float* partials,
+                      double* gsums, unsigned int* tickets, float* out, void* stream) {
+  return pair_launch<kAniso>(params, ptsT, table, rows, scovT, N, K, R, grid, partials, gsums,
+                             tickets, out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

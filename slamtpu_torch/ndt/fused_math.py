@@ -3,26 +3,26 @@ of it (port of slamtpu/ndt/pallas_math.py: ``gather_megaT``,
 ``fused_objective``, ``score_grad_hess_fused``, ``newton_align_fused`` and
 ``gicp_align_fused``).
 
-Three pair kernels carry it, each beside its plain PyTorch version:
+Three pair kernels carry it, the three costs of one CUDA kernel template,
+each beside its plain PyTorch version:
 
-- ``ndt_pair``   (CUDA ``ndt_pair_kernel<false>``, plain ``_ndt_pair_plain``):
+- ``ndt_pair``   (CUDA ``ndt_pair_kernel<kNdt>``,   plain ``_ndt_pair_plain``):
   the NDT pair math, K poses in one launch (SVN stage 1, Newton);
-- ``gicp_pair``  (CUDA ``ndt_pair_kernel<true>``,  plain ``_gicp_pair_plain``):
+- ``gicp_pair``  (CUDA ``ndt_pair_kernel<kGicp>``,  plain ``_gicp_pair_plain``):
   the trimmed isotropic VGICP cost against a ``gicp_map`` RegMap (the
   odom_ndt GICP engine's Newton);
-- ``aniso_pair`` (CUDA ``aniso_pair_kernel``, plain ``_aniso_pair_plain``):
-  plane-to-plane GICP against the aux payload (the SVN polish).
+- ``aniso_pair`` (CUDA ``ndt_pair_kernel<kAniso>``, plain ``_aniso_pair_plain``):
+  plane-to-plane GICP against the aux table ``regmap.packed_aux`` and each
+  point's body-frame source covariance scovT (9, N) (the SVN polish).
 
-``ndt_pair`` and ``gicp_pair`` take the RegMap table (R, 96), whose last
-row is the all-zero sentinel, and each point's row index (N,) int32
-(``regmap.grid_rows``), and gather the rows inside the kernel;
-``aniso_pair`` takes pre-gathered planar rows megaT (96, N)
-(``gather_megaT``). Each takes params (K, 16) = R(9), t(3), d1, d2, mode,
-max_mahal and returns (K, 44) sums: score, grad [omega, v] (6), Hessian
-(36), count. A wrapper runs the plain version only for CPU
-tensors; for CUDA tensors it launches the kernel (``csrc/ndt_pair.cu``,
-built at first launch) or raises. ``LAUNCHES`` counts kernel launches, and
-only those.
+Each takes a RegMap table (R, 96), whose last row is the all-zero
+sentinel, and each point's row index (N,) int32 (``regmap.grid_rows``),
+and gathers the rows inside the kernel; each takes params (K, 16) = R(9),
+t(3), d1, d2, mode, max_mahal and returns (K, 44) sums: score, grad
+[omega, v] (6), Hessian (36), count. A wrapper runs the plain version only
+for CPU tensors; for CUDA tensors it launches the kernel
+(``csrc/ndt_pair.cu``, built at first launch) or raises. ``LAUNCHES``
+counts kernel launches, and only those.
 
 The Newton loop is a Python loop over outer iterations (one row lookup
 each). Its exit test reads the iteration count and the convergence flag on
@@ -48,7 +48,7 @@ HOST_READS = {"newton": 0}
 
 _lock = threading.Lock()
 _lib = None
-# per (device, stream): the zeroed counters with which the B1/B2 kernel finds
+# per (device, stream): the zeroed counters with which the pair kernel finds
 # its finishing blocks (the kernel resets them); launches on one stream run
 # in turn
 _tickets: dict = {}
@@ -63,19 +63,18 @@ def _load():
 
             lib = ctypes.CDLL(build_library(("ndt_pair.cu",), "ndt_pair"))
             vp, ci = ctypes.c_void_p, ctypes.c_int
+            tail = [ci, ci, ci, ci, vp, vp, vp, vp, vp]  # N, K, R, grid, scratch, out, stream
             for fn in (lib.ndt_pair_launch, lib.gicp_pair_launch):
-                fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp]
+                fn.argtypes = [vp] * 4 + tail
                 fn.restype = ci
-            lib.aniso_pair_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp]
+            lib.aniso_pair_launch.argtypes = [vp] * 5 + tail  # + scovT
             lib.aniso_pair_launch.restype = ci
-            for fn in (lib.ndt_pair_threads, lib.ndt_pair_max_poses, lib.ndt_pair_acc,
-                       lib.ndt_pair_group):
+            for fn in (lib.ndt_pair_max_poses, lib.ndt_pair_acc, lib.ndt_pair_group):
                 fn.argtypes = []
                 fn.restype = ci
-            lib.ndt_pair_grid.argtypes = [ci, ci]
-            lib.ndt_pair_grid.restype = ci
-            lib.ndt_pair_blocks_per_sm.argtypes = [ci]
-            lib.ndt_pair_blocks_per_sm.restype = ci
+            for fn in (lib.ndt_pair_grid, lib.ndt_pair_blocks_per_sm):
+                fn.argtypes = [ci, ci]
+                fn.restype = ci
             lib.ndt_pair_error_string.argtypes = [ci]
             lib.ndt_pair_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -115,8 +114,9 @@ def _raise_on(rc, name, lib):
                            f"({lib.ndt_pair_error_string(rc).decode()})")
 
 
-def _launch_rows(name, params, ptsT, table, rows):
-    """B1 / B2: one launch, the rows gathered in the kernel."""
+def _launch_rows(name, params, ptsT, table, rows, scovT=None):
+    """One launch of kernel ``name`` (B1, B2, or B3 with ``scovT``), the
+    rows gathered in the kernel."""
     lib = _load()
     K, N, R = params.shape[0], ptsT.shape[1], table.shape[0]
     if K > lib.ndt_pair_max_poses():
@@ -140,29 +140,14 @@ def _launch_rows(name, params, ptsT, table, rows):
         partials = torch.empty((max(grid, 1), K, acc), dtype=torch.float32, device=dev)
         gsums = torch.empty((groups, K, acc), dtype=torch.float64, device=dev)
         out = torch.empty((K, 44), dtype=torch.float32, device=dev)
-        fn = lib.gicp_pair_launch if name == "gicp_pair" else lib.ndt_pair_launch
-        ptrs = [ctypes.c_void_p(t.data_ptr())
-                for t in (params, ptsT, table, rows, partials, gsums, tickets, out)]
-        rc = fn(*ptrs[:4], N, K, R, grid, *ptrs[4:], ctypes.c_void_p(stream.cuda_stream))
+        ins = (params, ptsT, table, rows) + (() if scovT is None else (scovT,))
+        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in ins]
+        scratch = [ctypes.c_void_p(t.data_ptr()) for t in (partials, gsums, tickets, out)]
+        rc = getattr(lib, f"{name}_launch")(*ptrs, N, K, R, grid, *scratch,
+                                             ctypes.c_void_p(stream.cuda_stream))
     _raise_on(rc, name, lib)
     if N > 0 and K > 0:  # else no kernel ran (out is zeros, or empty)
         LAUNCHES[name] += 1
-    return out
-
-
-def _launch_aniso(params, ptsT, megaT, scovT):
-    lib = _load()
-    K, N = params.shape[0], ptsT.shape[1]
-    n_blocks = -(-N // lib.ndt_pair_threads())
-    with torch.cuda.device(ptsT.device):
-        partials = torch.empty((K, max(n_blocks, 1), 44), dtype=torch.float32, device=ptsT.device)
-        out = torch.empty((K, 44), dtype=torch.float32, device=ptsT.device)
-        stream = ctypes.c_void_p(torch.cuda.current_stream(ptsT.device).cuda_stream)
-        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (params, ptsT, megaT, scovT)]
-        rc = lib.aniso_pair_launch(*ptrs, N, K, ctypes.c_void_p(partials.data_ptr()),
-                                   ctypes.c_void_p(out.data_ptr()), stream)
-    _raise_on(rc, "aniso_pair", lib)
-    LAUNCHES["aniso_pair"] += 1
     return out
 
 
@@ -186,16 +171,17 @@ def gicp_pair(params, ptsT, table, rows) -> torch.Tensor:
     return _launch_rows("gicp_pair", params, ptsT, table, rows)
 
 
-def aniso_pair(params, ptsT, megaT, scovT) -> torch.Tensor:
-    """Plane-to-plane GICP pair sums (K, 44) over pre-gathered aux rows (B3)."""
-    dev = _device_of(params, ptsT, megaT, scovT)
-    N = ptsT.shape[1] if ptsT.dim() == 2 else -1
-    for t, shape in ((params, (params.shape[0], 16)), (ptsT, (3, N)), (megaT, (96, N)),
-                     (scovT, (9, N))):
-        _check(t, shape)
+def aniso_pair(params, ptsT, table, rows, scovT) -> torch.Tensor:
+    """Plane-to-plane GICP pair sums (K, 44) (B3): point i's aux row is
+    ``table[rows[i]]`` (``regmap.packed_aux``), its body-frame source
+    covariance scovT[:, i] (row-major); params[:, 13] carries
+    max_corr_dist^2, params[:, 15] max_mahal."""
+    dev = _device_of(params, ptsT, table, rows, scovT)
+    _check_rows_inputs(params, ptsT, table, rows)
+    _check(scovT, (9, ptsT.shape[1]))
     if dev.type == "cpu":
-        return _aniso_pair_plain(params, ptsT, megaT, scovT)
-    return _launch_aniso(params, ptsT, megaT, scovT)
+        return _aniso_pair_plain(params, ptsT, table, rows, scovT)
+    return _launch_rows("aniso_pair", params, ptsT, table, rows, scovT)
 
 
 # --- plain PyTorch versions (the CPU path, and the reference on the card) ---
@@ -300,8 +286,8 @@ def _gicp_pair_plain(params, ptsT, table, rows) -> torch.Tensor:
     return _trimmed_quadratic(R, x, tp, mu, icov[None], valid, params)
 
 
-def _aniso_pair_plain(params, ptsT, megaT, scovT) -> torch.Tensor:
-    mu, ct, valid = _unpack_rows(megaT.t())
+def _aniso_pair_plain(params, ptsT, table, rows, scovT) -> torch.Tensor:
+    mu, ct, valid = _unpack_rows(_table_rows(table, rows))
     R, x, tp = _pose_terms(params, ptsT)
     N = ptsT.shape[1]
     csrc = scovT.t().reshape(N, 3, 3)
@@ -331,15 +317,18 @@ def _aniso_pair_plain(params, ptsT, megaT, scovT) -> torch.Tensor:
 def gather_megaT(points, mask, pose: Pose3, regmap: RegMap, grid_shape,
                  table: str = "packed") -> torch.Tensor:
     """Voxel assignment + mega-row gather -> (96, N) float32, from
-    ``regmap.packed`` or (``table="aux"``) ``regmap.packed_aux`` (the
-    plane-to-plane kernel's input)."""
+    ``regmap.packed`` or (``table="aux"``) ``regmap.packed_aux``: the
+    reference's input to its kernels. No path of the port calls it: the
+    kernels gather the rows themselves from (table, ``grid_rows``); the
+    tests and the kernels' timing scripts use it as the reference's
+    counterpart."""
     drow = grid_rows(points, mask, pose, regmap, grid_shape)
     src = regmap.packed if table == "packed" else regmap.packed_aux
     return src[drow].t().contiguous().to(torch.float32)
 
 
 def pregathered_table(megaT):
-    """Pre-gathered rows megaT (96, N) as the B1/B2 kernels' inputs: the
+    """Pre-gathered rows megaT (96, N) as the pair kernels' inputs: the
     table (N + 1, 96), the rows with the zero sentinel row appended, and
     the row index 0..N-1."""
     N = megaT.shape[1]
@@ -373,32 +362,31 @@ def _objective(out, batched: bool, hess_lambda) -> NdtObjective:
 
 
 def rows_objective(ptsT, table, rows, pose: Pose3, d1, d2, hess_lambda=1e-6, gicp: bool = False,
-                   gicp_max_mahal: float = 9.0) -> NdtObjective:
+                   gicp_max_mahal: float = 9.0, src_covT=None) -> NdtObjective:
     """The NDT (or, with ``gicp=True``, the trimmed VGICP) pair math for one
     pose or K poses, point i against mega row ``table[rows[i]]``. In the
     VGICP cost the table is a ``gicp_map`` RegMap's, ``d2`` carries
-    max_corr_dist^2 and d1 is unused. Fields come back batched like
-    ``pose``."""
+    max_corr_dist^2 and d1 is unused. With ``src_covT`` ((9, N) body-frame
+    source covariances) it runs the plane-to-plane cost: the table is the
+    aux table (``regmap.packed_aux``) and ``d2`` carries max_corr_dist^2.
+    Fields come back batched like ``pose``."""
     params = pose_params(pose, d1, d2, gicp_max_mahal, gicp)
-    out = (gicp_pair if gicp else ndt_pair)(params, ptsT, table, rows)
+    if src_covT is not None:
+        out = aniso_pair(params, ptsT, table, rows, src_covT)
+    else:
+        out = (gicp_pair if gicp else ndt_pair)(params, ptsT, table, rows)
     return _objective(out, pose.rot.dim() == 3, hess_lambda)
 
 
 def fused_objective(ptsT, megaT, pose: Pose3, d1, d2, hess_lambda=1e-6, gicp: bool = False,
                     gicp_max_mahal: float = 9.0, src_covT=None) -> NdtObjective:
     """The pair math on pre-gathered rows megaT (96, N) for one pose or K
-    poses (the reference's signature).
-
-    NDT and VGICP (``gicp=True``) run ``rows_objective`` with megaT's
-    columns as the table and the identity as the row index. With
-    ``src_covT`` ((9, N) body-frame source covariances) it runs the
-    plane-to-plane mode: megaT carries the aux payload and ``d2`` carries
-    max_corr_dist^2."""
-    if src_covT is None:
-        table, rows = pregathered_table(megaT)
-        return rows_objective(ptsT, table, rows, pose, d1, d2, hess_lambda, gicp, gicp_max_mahal)
-    params = pose_params(pose, d1, d2, gicp_max_mahal, gicp)
-    return _objective(aniso_pair(params, ptsT, megaT, src_covT), pose.rot.dim() == 3, hess_lambda)
+    poses (the reference's signature): ``rows_objective`` with megaT's
+    columns as the table and the identity as the row index (with
+    ``src_covT``, megaT carries the aux payload)."""
+    table, rows = pregathered_table(megaT)
+    return rows_objective(ptsT, table, rows, pose, d1, d2, hess_lambda, gicp, gicp_max_mahal,
+                          src_covT)
 
 
 def score_grad_hess_fused(points, mask, pose: Pose3, regmap: RegMap, d1: float, d2: float,

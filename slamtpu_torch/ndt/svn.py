@@ -7,8 +7,10 @@ gathers the rows from the RegMap table itself;
 stage 2 is the K x K SE(3) RBF kernel, the kernel-averaged force and the
 regularized Hessians, batched 6x6 solves; stage 3 retracts the particles.
 Then an optional MAP polish (Newton steps on the NDT score, or on the
-plane-to-plane GICP cost against the RegMap's aux payload) and the
-particle-spread covariance at the published pose.
+plane-to-plane GICP cost against the RegMap's aux table, each step one row
+lookup at its own pose and one launch of the plane-to-plane kernel, which
+gathers the aux rows itself) and the particle-spread covariance at the
+published pose.
 
 The loop runs ``max_iterations`` trips on the device with no host sync:
 once converged, the state freezes (the iteration counter and the
@@ -24,7 +26,7 @@ from ..core import linalg, se3
 from ..core.const import constant
 from ..core.se3 import Pose3
 from .constants import gauss_constants
-from .fused_math import fused_objective, gather_megaT, rows_objective
+from .fused_math import rows_objective
 from .regmap import grid_rows
 
 # particle init sigmas around the prior, tangent order [omega, v]
@@ -108,10 +110,9 @@ def svn_align_reg(
         scovT = src_cov.reshape(points.shape[0], 9).t().contiguous().to(torch.float32)
 
         def polish_make_obj(mean_pose):
-            megaT_aux = gather_megaT(points, mask, mean_pose, regmap, grid_shape, table="aux")
-            return lambda pose: fused_objective(
-                ptsT, megaT_aux, pose, 0.0, 25.0, cfg.hess_lambda, src_covT=scovT
-            )
+            rows = grid_rows(points, mask, mean_pose, regmap, grid_shape)
+            return lambda pose: rows_objective(ptsT, regmap.packed_aux, rows, pose, 0.0, 25.0,
+                                               cfg.hess_lambda, src_covT=scovT)
 
     if init_noise is None:
         init_noise = torch.randn(

@@ -7,11 +7,12 @@ not have, so run them there from the repository root without it:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
 chip_smoke.py checks the three kernels (NDT, VGICP, plane-to-plane) at the
-main paths' shapes (N = 65,536). These add ragged N (below one 32-point
-tile, not a multiple of it, more tiles than persistent blocks), K poses in
-one launch against K launches, rows gathered in the kernel against the
-same rows pre-gathered, points sharing rows, sentinel and out-of-range
-rows, repeatability, the launch counter and the wrappers' input checks. Tolerances are
+main paths' shapes (N = 65,536). These add, for each of the three, ragged
+N (below one 32-point tile, not a multiple of it, more tiles than
+persistent blocks), K poses in one launch against K launches, rows
+gathered in the kernel against the same rows pre-gathered, points sharing
+rows, sentinel and out-of-range rows, repeatability, the launch counter
+and the wrappers' input checks. Tolerances are
 chip_smoke.py's (``compare``): float32 sums of the same pair terms in
 another order.
 """
@@ -36,9 +37,10 @@ def dev():
 
 def _inputs(n, k, dev, seed=0):
     """Random points, a row table (its last row the all-zero sentinel) with
-    each point's row index, the same rows pre-gathered (96, N) for the
-    plane-to-plane kernel, source covariances, and the (K, 16) parameters
-    of K poses near identity for the three kernels."""
+    each point's row index, the same rows pre-gathered (96, N), source
+    covariances, and the (K, 16) parameters of K poses near identity for
+    the three kernels. The table's matrices are SPD: the icov of the NDT
+    and VGICP costs, the target covariance of the plane-to-plane cost."""
     rng = np.random.default_rng(seed)
     R = max(n // 2, 1) + 1
     # point pairs (2r, 2r + 1) share table row perm[r], whose means sit near them
@@ -71,16 +73,23 @@ def _inputs(n, k, dev, seed=0):
             fused_math.pose_params(poses, 0.0, 2.0, 9.0, gicp=True))  # the VGICP distance gate bites
 
 
+def _kernels(scovT, p_ndt, p_aniso, p_gicp):
+    """(name, kernel, plain, params) of the three kernels, each called as
+    fn(params, ptsT, table, rows)."""
+    def aniso(fn):
+        return lambda p, ptsT, table, rows: fn(p, ptsT, table, rows, scovT)
+
+    return [
+        ("ndt_pair", fused_math.ndt_pair, fused_math._ndt_pair_plain, p_ndt),
+        ("aniso_pair", aniso(fused_math.aniso_pair), aniso(fused_math._aniso_pair_plain), p_aniso),
+        ("gicp_pair", fused_math.gicp_pair, fused_math._gicp_pair_plain, p_gicp),
+    ]
+
+
 def _both(ptsT, table, rows, megaT, scovT, p_ndt, p_aniso, p_gicp):
     """(kernel, plain) sums of the three kernels."""
-    return [
-        (fused_math.ndt_pair(p_ndt, ptsT, table, rows),
-         fused_math._ndt_pair_plain(p_ndt, ptsT, table, rows)),
-        (fused_math.aniso_pair(p_aniso, ptsT, megaT, scovT),
-         fused_math._aniso_pair_plain(p_aniso, ptsT, megaT, scovT)),
-        (fused_math.gicp_pair(p_gicp, ptsT, table, rows),
-         fused_math._gicp_pair_plain(p_gicp, ptsT, table, rows)),
-    ]
+    return [(fn(p, ptsT, table, rows), plain(p, ptsT, table, rows))
+            for _, fn, plain, p in _kernels(scovT, p_ndt, p_aniso, p_gicp)]
 
 
 @pytest.mark.parametrize("n", [1, 31, 32, 100, 255, 257, 5000])
@@ -106,85 +115,78 @@ def test_batched_launch_equals_single_launches(dev):
     launch: K = 1..20 poses in one launch equal the single launches, bit
     for bit."""
     ptsT, table, rows, megaT, scovT, *params = _inputs(3000, 20, dev, seed=1)
-    p_ndt, p_aniso, p_gicp = params
-    singles = {
-        "ndt": [fused_math.ndt_pair(p_ndt[k:k + 1], ptsT, table, rows) for k in range(20)],
-        "gicp": [fused_math.gicp_pair(p_gicp[k:k + 1], ptsT, table, rows) for k in range(20)],
-    }
-    for K in range(1, 21):
-        nb = fused_math.ndt_pair(p_ndt[:K].contiguous(), ptsT, table, rows)
-        gb = fused_math.gicp_pair(p_gicp[:K].contiguous(), ptsT, table, rows)
-        for k in range(K):
-            assert torch.equal(nb[k:k + 1], singles["ndt"][k]), (K, k)
-            assert torch.equal(gb[k:k + 1], singles["gicp"][k]), (K, k)
-    batch = fused_math.aniso_pair(p_aniso[:5].contiguous(), ptsT, megaT, scovT)
-    for k in range(5):
-        assert torch.equal(batch[k:k + 1], fused_math.aniso_pair(p_aniso[k:k + 1], ptsT, megaT, scovT))
+    for name, fn, _, p in _kernels(scovT, *params):
+        singles = [fn(p[k:k + 1], ptsT, table, rows) for k in range(20)]
+        for K in range(1, 21):
+            batch = fn(p[:K].contiguous(), ptsT, table, rows)
+            for k in range(K):
+                assert torch.equal(batch[k:k + 1], singles[k]), (name, K, k)
 
 
 def test_gathered_in_kernel_equals_pregathered(dev):
     """The kernel on (table, rows) equals the same kernel on the rows
     pre-gathered as a table of their own with the identity index."""
-    ptsT, table, rows, megaT, _, p_ndt, _, p_gicp = _inputs(20000, 20, dev, seed=5)
+    ptsT, table, rows, megaT, scovT, *params = _inputs(20000, 20, dev, seed=5)
     pre, ident = fused_math.pregathered_table(megaT)
-    assert torch.equal(fused_math.ndt_pair(p_ndt, ptsT, table, rows),
-                       fused_math.ndt_pair(p_ndt, ptsT, pre, ident))
-    assert torch.equal(fused_math.gicp_pair(p_gicp[:1], ptsT, table, rows),
-                       fused_math.gicp_pair(p_gicp[:1], ptsT, pre, ident))
+    for name, fn, _, p in _kernels(scovT, *params):
+        for K in (1, 20):
+            assert torch.equal(fn(p[:K].contiguous(), ptsT, table, rows),
+                               fn(p[:K].contiguous(), ptsT, pre, ident)), (name, K)
 
 
 def test_points_sharing_rows(dev):
     """Points of a tile that share a row share its copy: rows drawn from a
     handful of table rows give the plain version's sums."""
-    ptsT, table, rows, _, _, p_ndt, _, p_gicp = _inputs(5000, 3, dev, seed=8)
+    ptsT, table, rows, _, scovT, *params = _inputs(5000, 3, dev, seed=8)
     few = rows[torch.randint(0, 4, rows.shape, generator=torch.Generator().manual_seed(0)).to(dev) * 97]
-    for fn, plain, p in ((fused_math.ndt_pair, fused_math._ndt_pair_plain, p_ndt),
-                         (fused_math.gicp_pair, fused_math._gicp_pair_plain, p_gicp)):
+    for _, fn, plain, p in _kernels(scovT, *params):
         compare(fn(p, ptsT, table, few), plain(p, ptsT, table, few))
 
 
 def test_sentinel_and_out_of_range_rows(dev):
     """All-sentinel rows count nothing and give finite (zero) sums; an index
     outside the table reads the sentinel row."""
-    ptsT, table, rows, _, _, p_ndt, _, p_gicp = _inputs(5000, 3, dev, seed=6)
+    ptsT, table, rows, _, scovT, *params = _inputs(5000, 3, dev, seed=6)
     R = table.shape[0]
     sentinel = torch.full_like(rows, R - 1)
-    for fn in (fused_math.ndt_pair, fused_math.gicp_pair):
-        out = fn(p_ndt if fn is fused_math.ndt_pair else p_gicp, ptsT, table, sentinel)
-        assert torch.isfinite(out).all() and (out[:, 43] == 0).all() and (out == 0).all()
     bad, fixed = rows.clone(), rows.clone()
     bad[::7], bad[3::7] = R + 11, -5
     fixed[::7], fixed[3::7] = R - 1, R - 1
-    assert torch.equal(fused_math.ndt_pair(p_ndt, ptsT, table, bad),
-                       fused_math.ndt_pair(p_ndt, ptsT, table, fixed))
+    for name, fn, _, p in _kernels(scovT, *params):
+        out = fn(p, ptsT, table, sentinel)
+        assert torch.isfinite(out).all() and (out[:, 43] == 0).all() and (out == 0).all(), name
+        assert torch.equal(fn(p, ptsT, table, bad), fn(p, ptsT, table, fixed)), name
 
 
 def test_kernels_repeat_and_count_launches(dev):
-    ptsT, table, rows, megaT, scovT, p_ndt, p_aniso, p_gicp = _inputs(20000, 20, dev, seed=2)
-    before = dict(fused_math.LAUNCHES)
-    a = fused_math.ndt_pair(p_ndt, ptsT, table, rows)
-    b = fused_math.ndt_pair(p_ndt, ptsT, table, rows)
-    c = fused_math.aniso_pair(p_aniso[:1], ptsT, megaT, scovT)
-    d = fused_math.aniso_pair(p_aniso[:1], ptsT, megaT, scovT)
-    e = fused_math.gicp_pair(p_gicp[:1], ptsT, table, rows)
-    f = fused_math.gicp_pair(p_gicp[:1], ptsT, table, rows)
-    assert torch.equal(a, b) and torch.equal(c, d) and torch.equal(e, f)  # no atomics: bit for bit
-    assert fused_math.LAUNCHES["ndt_pair"] == before["ndt_pair"] + 2
-    assert fused_math.LAUNCHES["aniso_pair"] == before["aniso_pair"] + 2
-    assert fused_math.LAUNCHES["gicp_pair"] == before["gicp_pair"] + 2
+    ptsT, table, rows, _, scovT, *params = _inputs(20000, 20, dev, seed=2)
+    for name, fn, _, p in _kernels(scovT, *params):
+        before = dict(fused_math.LAUNCHES)
+        a = fn(p, ptsT, table, rows)
+        b = fn(p[:1].contiguous(), ptsT, table, rows)
+        assert torch.equal(a, fn(p, ptsT, table, rows)), name  # no atomics: bit for bit
+        assert torch.equal(b, fn(p[:1].contiguous(), ptsT, table, rows)), name
+        want = dict(before, **{name: before[name] + 4})  # one launch a call, this kernel's only
+        assert fused_math.LAUNCHES == want, name
 
 
 def test_wrapper_rejects_bad_inputs_on_the_card(dev):
-    ptsT, table, rows, megaT, scovT, p_ndt, _, p_gicp = _inputs(300, 2, dev, seed=3)
+    ptsT, table, rows, _, scovT, p_ndt, p_aniso, p_gicp = _inputs(300, 2, dev, seed=3)
     before = dict(fused_math.LAUNCHES)
     with pytest.raises(ValueError):  # inputs on two devices
         fused_math.ndt_pair(p_ndt.cpu(), ptsT, table, rows)
     with pytest.raises(ValueError):  # not contiguous
         fused_math.ndt_pair(p_ndt, ptsT.t().contiguous().t(), table, rows)
     with pytest.raises(ValueError):  # wrong dtype
-        fused_math.aniso_pair(p_ndt, ptsT, megaT, scovT.double())
+        fused_math.aniso_pair(p_aniso, ptsT, table, rows, scovT.double())
     with pytest.raises(ValueError):  # wrong shape
-        fused_math.aniso_pair(p_ndt, ptsT, megaT[:90], scovT)
+        fused_math.aniso_pair(p_aniso, ptsT, table, rows, scovT[:8].contiguous())
+    with pytest.raises(ValueError):  # one covariance too few
+        fused_math.aniso_pair(p_aniso, ptsT, table, rows, scovT[:, 1:].contiguous())
+    with pytest.raises(ValueError):  # covariances on another device
+        fused_math.aniso_pair(p_aniso, ptsT, table, rows, scovT.cpu())
+    with pytest.raises(ValueError):  # not contiguous
+        fused_math.aniso_pair(p_aniso, ptsT, table, rows, scovT.t().contiguous().t())
     with pytest.raises(ValueError):  # inputs on two devices
         fused_math.gicp_pair(p_gicp, ptsT.cpu(), table, rows)
     with pytest.raises(ValueError):  # wrong params shape
@@ -192,12 +194,14 @@ def test_wrapper_rejects_bad_inputs_on_the_card(dev):
     assert fused_math.LAUNCHES == before
 
 
-@pytest.mark.parametrize("fn", ["ndt_pair", "gicp_pair"])
+@pytest.mark.parametrize("fn", ["ndt_pair", "gicp_pair", "aniso_pair"])
 def test_wrapper_rejects_bad_table_and_rows(dev, fn):
     """Wrong dtype, shape or device of the table or the row index raises
     before any launch."""
-    ptsT, table, rows, _, _, p_ndt, _, _ = _inputs(300, 2, dev, seed=7)
+    ptsT, table, rows, _, scovT, p_ndt, _, _ = _inputs(300, 2, dev, seed=7)
     kern = getattr(fused_math, fn)
+    if fn == "aniso_pair":
+        kern = lambda p, ptsT, table, rows: fused_math.aniso_pair(p, ptsT, table, rows, scovT)  # noqa: E731
     before = dict(fused_math.LAUNCHES)
     R = table.shape[0]
     misaligned = table.view(-1)[1:1 + 96 * (R - 1)].view(R - 1, 96)  # 4 bytes off

@@ -1,9 +1,9 @@
-"""The NDT and VGICP pair kernels' row-index inputs (B1, B2) on the CPU: the
-plain version on the RegMap table and each point's row index
-(``grid_rows``), against the same plain version on the pre-gathered
-rows of ``gather_megaT`` and against the reference's Pallas kernel
-(``slamtpu.ndt.pallas_math.fused_objective``, interpret mode) on the
-reference's own ``gather_megaT``.
+"""The pair kernels' row-index inputs (B1 NDT, B2 VGICP, B3 plane-to-plane
+on the aux table) on the CPU: the plain version on the RegMap table and
+each point's row index (``grid_rows``), against the same plain version on
+the pre-gathered rows of ``gather_megaT`` and against the reference's
+Pallas kernel (``slamtpu.ndt.pallas_math.fused_objective``, interpret
+mode) on the reference's own ``gather_megaT``.
 
 Tolerances against the reference are test_torch_fused.py's (the reference's
 fused-vs-XLA check): n_contrib exact, score rtol 2e-6, grad rtol 1e-4 /
@@ -19,7 +19,7 @@ import torch
 from slamtpu.core import se3 as jse3
 from slamtpu.mapping import gaussian_map as jgm
 from slamtpu.ndt import build_regmap as jbuild_regmap
-from slamtpu.ndt import gauss_constants
+from slamtpu.ndt import gauss_constants, regularize_plane_covariance
 from slamtpu.ndt.pallas_math import fused_objective as jfused_objective
 from slamtpu.ndt.pallas_math import gather_megaT as jgather
 from slamtpu.ndt.regmap import point_rows as jpoint_rows
@@ -43,7 +43,9 @@ def scene():
     origin = (np.floor(target.min(0)) - 8.0).astype(np.float32)
     gmap = jgm.build_map(jnp.asarray(target), jnp.ones(len(target), bool), jnp.asarray(origin), RES,
                          capacity=2048)
-    jr = jbuild_regmap(gmap, grid_shape=GRID)
+    # the aux payload of the lo_svn map: mean + plane-regularized covariance
+    aux = jnp.concatenate([gmap.mean, regularize_plane_covariance(gmap.cov).reshape(-1, 9)], axis=1)
+    jr = jbuild_regmap(gmap, grid_shape=GRID, aux_payload=aux)
     tr = interop.regmap_from_numpy({k: (None if v is None else np.asarray(v))
                                     for k, v in jr._asdict().items()})
     src = two_plane_cloud(extent=8.0, pitch=0.2)
@@ -56,59 +58,87 @@ def scene():
     return jr, tr, pts, mask
 
 
+@pytest.fixture(scope="module")
+def scovT():
+    """Body-frame source covariances (9, N), plane-regularized as the lo_svn
+    path's stencil covariances are."""
+    c = np.random.default_rng(29).normal(scale=0.05, size=(N, 3, 3))
+    scov = np.asarray(regularize_plane_covariance(jnp.asarray(c @ c.transpose(0, 2, 1))), np.float32)
+    return scov.reshape(N, 9).T.copy()
+
+
 def _poses(k, seed):
     xi = np.random.default_rng(seed).normal(scale=[0.01, 0.01, 0.02, 0.05, 0.05, 0.05], size=(k, 6))
     p = jse3.expmap(jnp.asarray(xi, jnp.float32))
     return np.asarray(p.rot, np.float32), np.asarray(p.trans, np.float32)
 
 
-def _params(mode, rot, trans):
-    d1, d2, _ = gauss_constants(float(RES), 0.55)
+# per mode: (d1, d2) of the kernel parameters (the VGICP gate bites; the
+# plane-to-plane cost at the polish's 5 m gate), the reference's table name
+MODES = {"ndt": (None, "packed"), "gicp": ((0.0, 0.04), "packed"), "aniso": ((0.0, 25.0), "aux")}
+
+
+def _d(mode):
+    if MODES[mode][0] is None:
+        d1, d2, _ = gauss_constants(float(RES), 0.55)
+        return d1, d2
+    return MODES[mode][0]
+
+
+def _params(mode, rot, trans, scovT=None):
+    """(params, plain version called as plain(params, ptsT, table, rows),
+    the mode's table of the port's RegMap ``tr``)."""
     pose = interop.pose_from_numpy(rot, trans)
-    if mode == "ndt":
-        return fused_math.pose_params(pose, d1, d2), fused_math._ndt_pair_plain
-    return fused_math.pose_params(pose, 0.0, 0.04, 9.0, gicp=True), fused_math._gicp_pair_plain
+    params = fused_math.pose_params(pose, *_d(mode), 9.0, gicp=mode == "gicp")
+    if mode == "aniso":
+        s = torch.as_tensor(scovT)
+        return params, lambda p, ptsT, t, r: fused_math._aniso_pair_plain(p, ptsT, t, r, s), "packed_aux"
+    plain = fused_math._ndt_pair_plain if mode == "ndt" else fused_math._gicp_pair_plain
+    return params, plain, "packed"
 
 
-@pytest.mark.parametrize("mode", ["ndt", "gicp"])
-def test_rows_plain_equals_pregathered_plain(scene, mode):
+@pytest.mark.parametrize("mode", list(MODES))
+def test_rows_plain_equals_pregathered_plain(scene, scovT, mode):
     """(table, rows) and gather_megaT's (96, N) give the same sums, bit for
     bit, for K = 4 poses in one call."""
     _, tr, pts, mask = scene
     rot, trans = _poses(4, 1)
-    params, plain = _params(mode, rot, trans)
+    params, plain, table = _params(mode, rot, trans, scovT)
     tp, tm = torch.as_tensor(pts), torch.as_tensor(mask)
     ident = interop.pose_from_numpy(np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
     rows = grid_rows(tp, tm, ident, tr, GRID)
     assert rows.dtype == torch.int32 and rows.shape == (N,)
     assert int(rows.max()) == tr.packed.shape[0] - 1  # some points read the sentinel
-    megaT = fused_math.gather_megaT(tp, tm, ident, tr, GRID)
+    megaT = fused_math.gather_megaT(tp, tm, ident, tr, GRID, table=MODES[mode][1])
     ptsT = tp.t().contiguous()
-    a = plain(params, ptsT, tr.packed, rows)
+    a = plain(params, ptsT, getattr(tr, table), rows)
     b = plain(params, ptsT, *fused_math.pregathered_table(megaT))
     assert torch.equal(a, b)
     assert (a[:, 43] > 0).all()
 
 
-@pytest.mark.parametrize("mode", ["ndt", "gicp"])
-def test_rows_objective_matches_pallas(scene, mode):
-    """``rows_objective`` on the RegMap table and ``grid_rows`` against
-    the reference's kernel on its ``gather_megaT``, at three poses."""
+@pytest.mark.parametrize("mode", list(MODES))
+def test_rows_objective_matches_pallas(scene, scovT, mode):
+    """``rows_objective`` on the RegMap table (the aux table with the
+    source covariances for the plane-to-plane cost) and ``grid_rows``
+    against the reference's kernel on its ``gather_megaT``, at three poses."""
     jr, tr, pts, mask = scene
-    d1, d2, _ = gauss_constants(float(RES), 0.55)
-    if mode == "gicp":
-        d1, d2 = 0.0, 0.04  # a distance gate that bites
+    d1, d2 = _d(mode)
+    aniso = mode == "aniso"
     rot, trans = _poses(3, 2)
     tp, tm = torch.as_tensor(pts), torch.as_tensor(mask)
     for i in range(3):
         jpose = jse3.Pose3(jnp.asarray(rot[i]), jnp.asarray(trans[i]))
         tpose = interop.pose_from_numpy(rot[i], trans[i])
-        megaT = jgather(jnp.asarray(pts), jnp.asarray(mask), jpose, jr, GRID)
+        megaT = jgather(jnp.asarray(pts), jnp.asarray(mask), jpose, jr, GRID, table=MODES[mode][1])
         b = jfused(jnp.asarray(pts.T), megaT, jpose, d1, d2, 1e-6, gicp=mode == "gicp",
-                   gicp_max_mahal=9.0, interpret=True)
+                   gicp_max_mahal=9.0, interpret=True,
+                   src_covT=jnp.asarray(scovT) if aniso else None)
         rows = grid_rows(tp, tm, tpose, tr, GRID)
-        a = fused_math.rows_objective(tp.t().contiguous(), tr.packed, rows, tpose, d1, d2, 1e-6,
-                                      gicp=mode == "gicp", gicp_max_mahal=9.0)
+        a = fused_math.rows_objective(tp.t().contiguous(), tr.packed_aux if aniso else tr.packed,
+                                      rows, tpose, d1, d2, 1e-6, gicp=mode == "gicp",
+                                      gicp_max_mahal=9.0,
+                                      src_covT=torch.as_tensor(scovT) if aniso else None)
         assert int(a.n_contrib) == int(b.n_contrib) > 0
         np.testing.assert_allclose(float(a.score), float(b.score), rtol=2e-6)
         np.testing.assert_allclose(a.grad.numpy(), np.asarray(b.grad), rtol=1e-4, atol=1e-2)
@@ -136,12 +166,11 @@ def test_row_index_matches_reference_on_edge_points(scene):
     assert (want < tr.packed.shape[0] - 1).sum() > 1000  # most points find a cell
 
 
-def test_out_of_range_rows_read_the_sentinel(scene):
+def test_out_of_range_rows_read_the_sentinel(scene, scovT):
     """An index outside the table reads the sentinel row, as the kernel's
     clamp does: the sums equal those with the sentinel's own index."""
     _, tr, pts, mask = scene
     rot, trans = _poses(2, 3)
-    params, plain = _params("ndt", rot, trans)
     tp = torch.as_tensor(pts)
     ident = interop.pose_from_numpy(np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
     rows = grid_rows(tp, torch.as_tensor(mask), ident, tr, GRID)
@@ -153,26 +182,56 @@ def test_out_of_range_rows_read_the_sentinel(scene):
     sentinel[::5] = R - 1
     sentinel[1::5] = R - 1
     ptsT = tp.t().contiguous()
-    assert torch.equal(plain(params, ptsT, tr.packed, bad), plain(params, ptsT, tr.packed, sentinel))
+    for mode in MODES:
+        params, plain, table = _params(mode, rot, trans, scovT)
+        table = getattr(tr, table)
+        assert torch.equal(plain(params, ptsT, table, bad), plain(params, ptsT, table, sentinel)), mode
 
 
-def test_all_sentinel_rows_count_nothing(scene):
+def test_all_sentinel_rows_count_nothing(scene, scovT):
     _, tr, pts, _ = scene
     rot, trans = _poses(2, 4)
     ptsT = torch.as_tensor(pts).t().contiguous()
     rows = torch.full((N,), tr.packed.shape[0] - 1, dtype=torch.int32)
-    for mode in ("ndt", "gicp"):
-        params, plain = _params(mode, rot, trans)
-        out = plain(params, ptsT, tr.packed, rows)
-        assert torch.isfinite(out).all() and (out == 0).all()
+    for mode in MODES:
+        params, plain, table = _params(mode, rot, trans, scovT)
+        out = plain(params, ptsT, getattr(tr, table), rows)
+        assert torch.isfinite(out).all() and (out == 0).all(), mode
 
 
-def test_rows_wrapper_checks_inputs(scene):
+def test_aniso_wrapper_checks_source_covariances(scene, scovT):
+    """The plane-to-plane wrapper takes scovT (9, N) float32, contiguous,
+    on the points' device; on CPU tensors it runs the plain version and
+    launches nothing."""
+    _, tr, pts, mask = scene
+    ptsT = torch.as_tensor(pts).t().contiguous()
+    rot, trans = _poses(1, 6)
+    params, _, _ = _params("aniso", rot, trans, scovT)
+    rows = grid_rows(torch.as_tensor(pts), torch.as_tensor(mask),
+                     interop.pose_from_numpy(rot[0], trans[0]), tr, GRID)
+    s = torch.as_tensor(scovT)
+    for bad in (s.double(), s[:8].contiguous(), s[:, 1:].contiguous(), s.t().contiguous().t(),
+                s.reshape(N, 9)):
+        with pytest.raises(ValueError):
+            fused_math.aniso_pair(params, ptsT, tr.packed_aux, rows, bad)
+    before = dict(fused_math.LAUNCHES)
+    out = fused_math.aniso_pair(params, ptsT, tr.packed_aux, rows, s)
+    assert fused_math.LAUNCHES == before
+    assert torch.equal(out, fused_math._aniso_pair_plain(params, ptsT, tr.packed_aux, rows, s))
+    assert int(out[0, 43]) > 0
+
+
+def test_rows_wrapper_checks_inputs(scene, scovT):
     _, tr, pts, _ = scene
     ptsT = torch.as_tensor(pts).t().contiguous()
     params = torch.zeros((1, 16))
     rows = torch.zeros(N, dtype=torch.int32)
-    for fn in (fused_math.ndt_pair, fused_math.gicp_pair):
+    s = torch.as_tensor(scovT)
+
+    def aniso(p, ptsT, table, rows):
+        return fused_math.aniso_pair(p, ptsT, table, rows, s)
+
+    for fn in (fused_math.ndt_pair, fused_math.gicp_pair, aniso):
         with pytest.raises(ValueError):  # int64 indices
             fn(params, ptsT, tr.packed, rows.long())
         with pytest.raises(ValueError):  # one index too few

@@ -94,3 +94,38 @@ def test_svn_align_reg_matches_reference(scene, case):
     np.testing.assert_allclose(float(t.score), float(j.score), rtol=1e-4)
     # the posterior is a real one: the registration moved off the prior
     assert np.linalg.norm(np.asarray(j.pose.trans) - np.asarray(prior.trans)) > 1e-3
+
+
+def test_aniso_polish_gathers_aux_rows_in_the_kernel(scene, monkeypatch):
+    """Each plane-to-plane polish step is one call of the pair kernel's
+    wrapper on the RegMap's aux table and the points' rows at that step's
+    pose; nothing pre-gathers rows (``gather_megaT``)."""
+    _, treg, pts, mask, scov, prior = scene
+    from slamtpu_torch.ndt import fused_math
+
+    calls = []
+    aniso_pair = fused_math.aniso_pair
+
+    def spy(params, ptsT, table, rows, scovT):
+        calls.append((table, rows, params[:, 9:12].clone()))
+        return aniso_pair(params, ptsT, table, rows, scovT)
+
+    def no_gather(*args, **kwargs):
+        raise AssertionError("the polish pre-gathered rows")
+
+    monkeypatch.setattr(fused_math, "aniso_pair", spy)
+    monkeypatch.setattr(fused_math, "gather_megaT", no_gather)
+    cfg = dict(CASES["aniso_polish_from_prior"], num_particles=4, max_iterations=2, polish_iters=3)
+    svn_align_reg(
+        torch.as_tensor(pts), torch.as_tensor(mask), treg,
+        interop.pose_from_numpy(np.asarray(prior.rot), np.asarray(prior.trans)),
+        interop.svn_config_from_fields(JSvnConfig(resolution=float(RES), **cfg)._asdict()), GRID,
+        src_cov=torch.as_tensor(scov), init_noise=torch.zeros((4, 6)),
+    )
+    assert len(calls) == 3
+    for table, rows, _ in calls:
+        assert table is treg.packed_aux
+        assert rows.dtype == torch.int32 and rows.shape == (N,)
+        assert int((rows < treg.packed_aux.shape[0] - 1).sum()) > 3000  # most points find a row
+    # each step evaluates at its own pose: the polish moves
+    assert not torch.equal(calls[0][2], calls[1][2])
