@@ -1,11 +1,11 @@
 """slamtpu_torch — the PyTorch + CUDA port of slamtpu.
 
-A second package beside ``slamtpu`` (the JAX reference). It carries the
-lo_svn keyframe — projection, deskew, Gaussian map + RegMap build, stencil
-source covariances, SVN-NDT with the plane-to-plane polish, ring insert —
-and the odom_ndt keyframe, with the three pair kernels (NDT, VGICP and
-plane-to-plane) written by hand in CUDA C++ for Hopper
-(``csrc/ndt_pair.cu``).
+A second package beside ``slamtpu`` (the JAX reference). It carries three
+keyframe paths: lo_svn (projection, deskew, Gaussian map + RegMap build,
+stencil source covariances, SVN-NDT with the plane-to-plane polish, ring
+insert), odom_ndt, and ligo_tc (IMU preintegration and the 15-dof window
+smoother), with the three pair kernels (NDT, VGICP and plane-to-plane)
+written by hand in CUDA C++ for Hopper (``csrc/ndt_pair.cu``).
 
 Importing the package touches no device: it initializes no CUDA context,
 imports no triton and builds no kernel (kernels build at first launch).

@@ -200,3 +200,16 @@ def np_between(a: Pose3, b: Pose3) -> Pose3:
     Rb, tb = np.asarray(b.rot, np.float64), np.asarray(b.trans, np.float64)
     return Pose3(Ra.T @ Rb, Ra.T @ (tb - ta))
 
+
+def np_sqrt_info_from_sigmas(sigmas) -> np.ndarray:
+    """Host (numpy) diagonal whitening from per-dof standard deviations."""
+    return np.diag(1.0 / np.asarray(sigmas, np.float64))
+
+
+def np_sqrt_info_from_cov(cov, jitter: float = 1e-12) -> np.ndarray:
+    """Host (numpy) whitening S with S^T S = cov^-1 (lower-inverse)."""
+    cov = np.asarray(cov, np.float64)
+    d = cov.shape[-1]
+    L = np.linalg.cholesky(cov + jitter * np.eye(d))
+    return np.linalg.solve(L, np.eye(d))
+

@@ -48,8 +48,8 @@ from ..fusion.smoother import optimize_pose_window, pose_marginal_covariance
 from ..mapping import gaussian_map
 from ..ndt.fused_math import newton_align_fused
 from ..ndt.gicp import gicp_map
-from ..ndt.newton import NewtonConfig, NewtonResult
-from ..ndt.regmap import build_regmap
+from ..ndt.newton import NewtonConfig
+from ..ndt.regmap import RegMap, build_regmap
 from ..runtime.config import PipelineConfig
 from ..runtime.device_timer import DeviceStageTimer
 from ..runtime.device_timer import span as _span
@@ -77,21 +77,37 @@ def _register_step(
     inner_iters: int = 2,
     final_eval: bool = False,
     timer=None,
-) -> NewtonResult:
+    reg_pose: Pose3 = None,
+    regmap_cache: RegMap = None,
+    rebuild: bool = True,
+):
     """Build the target map and register by the configured engine (the
     reference's registration_method switch, run/pipeline.cpp:464-481).
     ``final_eval`` is newton_align_fused's contract switch: the app keeps
-    the reference's default (score and Hessian of the last applied step)."""
-    with _span(timer, "map_build"):
-        gmap = gaussian_map.build_map(target_points, target_mask, origin, cfg.resolution,
-                                      capacity=capacity, min_points_per_voxel=min_points)
-        if method == "GICP":
-            gmap = gicp_map(gmap)
-        regmap = build_regmap(gmap, grid_shape=grid_shape)
+    the reference's default (score and Hessian of the last applied step).
+    ``reg_pose`` adds the prior-pose pull toward it (with
+    ``cfg.reg_weight``).
+
+    With ``regmap_cache`` (NDT_OMP) the map and RegMap are built only when
+    the host flag ``rebuild`` is set, in the cache's dtypes, and the call
+    returns ``(result, regmap)`` so the caller carries the cache forward
+    (RegisterConfig.map_rebuild_every)."""
+    regmap = regmap_cache
+    if regmap_cache is None or rebuild:
+        with _span(timer, "map_build"):
+            gmap = gaussian_map.build_map(target_points, target_mask, origin, cfg.resolution,
+                                          capacity=capacity, min_points_per_voxel=min_points)
+            if method == "GICP":
+                gmap = gicp_map(gmap)
+            regmap = build_regmap(gmap, grid_shape=grid_shape)
+            if regmap_cache is not None:
+                regmap = RegMap(*(None if a is None else a.to(c.dtype)
+                                  for a, c in zip(regmap, regmap_cache)))
     with _span(timer, "newton"):
-        return newton_align_fused(new_points, new_mask, regmap, init_guess, cfg, grid_shape,
-                                  inner_iters=inner_iters, final_eval=final_eval,
-                                  _gicp=method == "GICP")
+        res = newton_align_fused(new_points, new_mask, regmap, init_guess, cfg, grid_shape,
+                                 inner_iters=inner_iters, reg_pose=reg_pose, final_eval=final_eval,
+                                 _gicp=method == "GICP")
+    return res if regmap_cache is None else (res, regmap)
 
 
 def _odom_fused_step(

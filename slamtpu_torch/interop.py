@@ -12,6 +12,9 @@ import numpy as np
 import torch
 
 from .core.se3 import Pose3
+from .fusion import graph
+from .fusion.preintegration import ImuNoise
+from .fusion.smoother import SmootherConfig
 from .mapping.gaussian_map import GaussianMap
 from .ndt.newton import NewtonConfig
 from .ndt.regmap import RegMap
@@ -96,3 +99,51 @@ def odom_carry_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> dic
     carry["prev_mask"] = _t(fields["prev_mask"], device, torch.bool)
     carry["n"] = int(fields["n"])
     return carry
+
+
+def _fields(nt) -> Mapping:
+    return nt if isinstance(nt, Mapping) else nt._asdict()
+
+
+def _f64_or_index(a, device):
+    """float64, except the integer (index) fields, which stay int32, and
+    the bool (mask) fields."""
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return _t(a, device, torch.bool)
+    return _t(a, device, None if np.issubdtype(a.dtype, np.integer) else torch.float64)
+
+
+def imu_noise_from_reference(noise, device="cpu") -> ImuNoise:
+    """The port's ImuNoise (float64 tensors) from the reference ImuNoise
+    (a NamedTuple or its ``_asdict()``)."""
+    f = _fields(noise)
+    return ImuNoise(*(_t(f[k], device, torch.float64) for k in ImuNoise._fields[:4]),
+                    integration_sigma=float(f["integration_sigma"]))
+
+
+def window_state_from_numpy(fields, device="cpu") -> graph.WindowState:
+    """The port's WindowState from the reference WindowState's fields."""
+    f = _fields(fields)
+    return graph.WindowState(*(_f64_or_index(f[k], device) for k in graph.WindowState._fields))
+
+
+def factors_from_numpy(fields, device="cpu") -> graph.Factors:
+    """The port's Factors from the reference Factors (a NamedTuple of
+    factor NamedTuples and the gravity vector, or the same as nested
+    mappings), field for field: indices int32, masks bool, the rest
+    float64."""
+    f = _fields(fields)
+    kinds = dict(prior_pose=graph.PriorPoseFactors, between=graph.BetweenFactors,
+                 prior_vel=graph.VecPriorFactors, prior_bias=graph.VecPriorFactors,
+                 imu=graph.ImuFactors, position=graph.PositionFactors)
+    out = {name: cls(*(_f64_or_index(_fields(f[name])[k], device) for k in cls._fields))
+           for name, cls in kinds.items()}
+    return graph.Factors(**out, gravity=_t(f["gravity"], device, torch.float64))
+
+
+def smoother_config_from_reference(cfg) -> SmootherConfig:
+    """The port's SmootherConfig from the reference SmootherConfig (a
+    NamedTuple or its ``_asdict()``), field for field."""
+    f = _fields(cfg)
+    return SmootherConfig(**{k: f[k] for k in SmootherConfig._fields})

@@ -15,6 +15,12 @@ rows, sentinel and out-of-range rows, repeatability, the launch counter
 and the wrappers' input checks. Tolerances are
 chip_smoke.py's (``compare``): float32 sums of the same pair terms in
 another order.
+
+The last tests hold ligo_tc's float64 preintegration and 15-dof window
+smoother (both solvers) on the card against the same calls on the CPU:
+within 1e-10 (the same float64 formulas; the factorizations and matrix
+products of another library), the marginal covariance within 1e-8 of the
+largest entry of H^-1.
 """
 import numpy as np
 import pytest
@@ -22,6 +28,7 @@ import torch
 
 from chip_smoke import compare
 from slamtpu_torch.core import se3
+from slamtpu_torch.fusion import graph, preintegration, smoother
 from slamtpu_torch.ndt import fused_math
 from slamtpu_torch.ndt.constants import gauss_constants
 
@@ -215,3 +222,95 @@ def test_wrapper_rejects_bad_table_and_rows(dev, fn):
         with pytest.raises(ValueError):
             kern(p_ndt, ptsT, tab, idx)
     assert fused_math.LAUNCHES == before
+
+
+def _imu_inputs(seed, n=11):
+    """A 64-sample IMU window (n real samples at ~50 Hz, one zero dt), a
+    bias and the noise densities, as numpy."""
+    rng = np.random.default_rng(seed)
+    accel = rng.normal(scale=0.5, size=(64, 3)) + [0.0, 0.0, -9.81]
+    gyro = rng.normal(scale=0.2, size=(64, 3))
+    dts = np.zeros(64)
+    dts[:n] = 0.02 + rng.uniform(-2e-3, 2e-3, n)
+    dts[n // 2] = 0.0
+    return accel, gyro, dts, rng.normal(scale=[0.05] * 3 + [0.01] * 3)
+
+
+def _integrate(dev, accel, gyro, dts, bias):
+    noise = preintegration.ImuNoise(*(torch.full((3,), s, dtype=torch.float64, device=dev)
+                                      for s in (1e-3, 1e-4, 1e-5, 1e-6)))
+    b = torch.as_tensor(bias, device=dev)
+    return preintegration.integrate(torch.as_tensor(accel, device=dev), torch.as_tensor(gyro, device=dev),
+                                    dts, preintegration.ImuBias(b[:3], b[3:]), noise)
+
+
+def test_preintegration_on_the_card_matches_the_cpu(dev):
+    for seed in range(3):
+        inputs = _imu_inputs(seed)
+        out, ref = _integrate(dev, *inputs), _integrate("cpu", *inputs)
+        for name in ("dR", "dv", "dp", "dt", "dR_dbg", "dv_dba", "dv_dbg", "dp_dba", "dp_dbg", "cov"):
+            a, b = getattr(out, name), getattr(ref, name)
+            assert a.device.type == dev.type and a.dtype == torch.float64, name
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-10, atol=1e-12, err_msg=name)
+
+
+def _ligo_window(dev):
+    """A ligo-like W = 6 window with 4 states filled (INS pose priors,
+    between factors and IMU factors on the chain, velocity priors, one bias
+    prior), states perturbed from the path; built on the CPU."""
+    rng = np.random.default_rng(11)
+    W, n = 6, 4
+    xi = np.concatenate([rng.normal(scale=0.05, size=(W, 3)), rng.normal(scale=0.2, size=(W, 3))], 1)
+    pose = se3.expmap(torch.as_tensor(xi))
+    rot, trans = pose.rot, pose.trans + torch.arange(W, dtype=torch.float64)[:, None] * torch.tensor([1.0, 0.1, 0.0])
+    vel = torch.tensor([10.0, 1.0, 0.0], dtype=torch.float64).repeat(W, 1)
+    active = torch.arange(W) < n
+    b_active = torch.arange(W - 1) < n - 1
+    pims = [_integrate("cpu", *_imu_inputs(10 + k, 6)) for k in range(W - 1)]
+    f = graph.empty_factors(W, W - 1, W, 1, W - 1, 0)
+    ks = torch.arange(W, dtype=torch.int32)
+    rel = se3.between(se3.Pose3(rot[:-1], trans[:-1]), se3.Pose3(rot[1:], trans[1:]))
+
+    def stack(key):
+        return torch.stack([getattr(p, key) for p in pims])
+
+    f = f._replace(
+        prior_pose=graph.PriorPoseFactors(ks, rot, trans + 0.01, graph.sqrt_info_from_sigmas(
+            torch.as_tensor(rng.uniform(0.01, 0.1, (W, 6)))), active),
+        between=graph.BetweenFactors(ks[:-1], ks[1:], rel.rot, rel.trans,
+                                     torch.eye(6, dtype=torch.float64).repeat(W - 1, 1, 1) * 100.0, b_active),
+        prior_vel=f.prior_vel._replace(idx=ks, value=vel, sqrt_info=f.prior_vel.sqrt_info / 0.5, active=active),
+        prior_bias=f.prior_bias._replace(idx=ks[:1], sqrt_info=f.prior_bias.sqrt_info / 0.05,
+                                         active=torch.ones(1, dtype=torch.bool)),
+        imu=graph.ImuFactors(ks[:-1], ks[1:], *(stack(k) for k in ("dR", "dv", "dp", "dt", "dR_dbg", "dv_dba",
+                                                                     "dv_dbg", "dp_dba", "dp_dbg")),
+                             torch.stack([p.bias_hat.vec() for p in pims]),
+                             graph.sqrt_info_from_cov(stack("cov")), b_active),
+    )
+    xr = se3.expmap(torch.as_tensor(rng.normal(scale=[0.01] * 3 + [0.1] * 3, size=(W, 6))))
+    state = graph.WindowState(rot @ xr.rot, trans + xr.trans, vel + 0.2, torch.zeros((W, 6), dtype=torch.float64),
+                              active)
+    def to(nt):
+        return type(nt)(*(to(x) if isinstance(x, tuple) else x.to(dev) for x in nt))
+
+    return to(state), to(f)
+
+
+@pytest.mark.parametrize("solver", ["qr", "chol"])
+def test_window_smoother_on_the_card_matches_the_cpu(dev, solver):
+    cfg = smoother.SmootherConfig(iterations=6, solver=solver)
+    ref = smoother.optimize(*_ligo_window("cpu"), cfg)
+    out = smoother.optimize(*_ligo_window(dev), cfg)
+    for name in ("rot", "trans", "vel", "bias"):
+        np.testing.assert_allclose(getattr(out.state, name).cpu().numpy(), getattr(ref.state, name).numpy(),
+                                   rtol=0, atol=1e-10, err_msg=name)
+    H, H_ref = out.hessian.cpu().numpy(), ref.hessian.numpy()
+    np.testing.assert_allclose(H, H_ref, rtol=1e-10, atol=1e-10 * np.abs(H_ref).max())
+    np.testing.assert_allclose(float(out.error), float(ref.error), rtol=1e-10)
+    # the marginal covariance inverts H (cond ~1e12 here): within 1e-8 of the
+    # largest entry of H^-1, as two LU inversions of one H agree on the CPU
+    inv_max = np.abs(np.linalg.inv(H_ref + 1e-12 * np.eye(H_ref.shape[0]))).max()
+    for idx in range(4):
+        cov = smoother.marginal_covariance(out.hessian, idx).cpu().numpy()
+        cov_ref = smoother.marginal_covariance(ref.hessian, idx).numpy()
+        np.testing.assert_allclose(cov, cov_ref, rtol=1e-8, atol=1e-8 * inv_max)
