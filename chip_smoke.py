@@ -10,28 +10,37 @@
    (2048 x 128 beams, stride 4: N = 65,536 points) at its true pose, the
    next sweep's rows looked up in it; each kernel against its plain
    PyTorch version on the card: the NDT pair kernel for K = 20 particle
-   poses and for K = 1 (also on a map at the odom capacity, 2^15), the
-   VGICP pair kernel against the map's ``gicp_map`` rows (K = 1) and the
-   plane-to-plane kernel against the map's aux table with the points'
-   source covariances (K = 1), each gathering its rows in the kernel from
-   (table, rows). It checks that the in-kernel gather equals the same
-   kernel on pre-gathered rows bit for bit, and prints max errors, device
+   poses and for K = 1 (both also on a map at the odom capacity, 2^15:
+   the SVNNDT and NDT_OMP engines' shapes), the VGICP pair kernel against
+   the map's ``gicp_map`` rows (K = 1) and the plane-to-plane kernel with
+   the points' stencil source covariances (K = 1) against the map's aux
+   table (the lo_svn polish) and against the table of a ``gicp_map_aniso``
+   map at the odom capacity (the anisotropic GICP engine), each gathering
+   its rows in the kernel from (table, rows). It checks that the in-kernel
+   gather equals the same kernel on pre-gathered rows bit for bit, and
+   prints max errors, device
    times per call (CUDA events around 20 back-to-back calls queued behind
    a device-side spin, see ``time_ms``; median of 10 such rounds, kernel
    and plain version in turns), each call's bound (bytes and operations at
    the card's published peaks), its share of the bound, the unique rows
    touched, the time of ``gather_megaT`` on each table (the torch gather
-   that the in-kernel one replaces) and of the row lookup with the
-   plane-to-plane kernel (one polish evaluation).
+   that the in-kernel one replaces), of the row lookup with the
+   plane-to-plane kernel (one polish evaluation), and of the map build's
+   largest fixed-order segment sum on a 5-sweep ring against
+   ``index_add_``'s atomic one on the same sorted values.
 4. lo_svn phase: ``LoSvnApp(cfg, "cuda").run_replay`` over a 12-sweep skewed
    replay at the Berlin operating point; checks that the NDT and
    plane-to-plane kernels launched, that every pose is finite and that the
    ATE against ground truth is below 5 mm.
-5. odom phase: ``OdomNdtApp(cfg, "cuda", window=6).run_replay`` over the
-   same replay with the NDT_OMP engine (Newton over the NDT pair kernel)
-   and with the isotropic GICP engine (Newton over the VGICP pair kernel);
-   checks that the engine's kernel launched, that every pose and
-   covariance is finite and that the ATE is below the engine's bound.
+5. odom phases: ``OdomNdtApp(cfg, "cuda", window=6).run_replay`` over the
+   same replay with each engine: NDT_OMP (Newton over the NDT pair
+   kernel), isotropic GICP (Newton over the VGICP pair kernel),
+   anisotropic GICP (Newton over the plane-to-plane pair kernel with the
+   stencil source covariances), SVNNDT (the SVN particle flow over the NDT
+   pair kernel at K = 20, polished on the NDT score) and NDT_OMP_MULTIRES
+   (Newton over the NDT pair kernel on a two-level map pyramid); checks
+   that the engine's kernel launched, that every pose and covariance is
+   finite and that the ATE is below the engine's bound.
 6. ligo phases: ``LigoTcApp(cfg, "cuda", window=6).run_replay`` over the
    same replay (IMU preintegration, Newton over the NDT pair kernel from
    the IMU prediction with the prior-pose pull, the 15-dof window
@@ -39,6 +48,11 @@
    Cholesky smoother) and at parity semantics (rebuilt every keyframe, QR
    smoother); checks that the NDT pair kernel launched, that every pose
    and covariance is finite and that the ATE is below 10 mm.
+7. resume phase: lo_svn, odom NDT_OMP and ligo at parity semantics each
+   run the first keyframes, ``save_checkpoint`` to a temporary file,
+   ``resume_from`` it in a new app on the card and run the rest; the
+   combined trajectory must equal the phase's continuous run above within
+   1e-4 m and 1e-4 rad.
 Each replay phase prints the ATE, steady-state keyframes/s, iteration
 counts, host syncs per keyframe, per-stage device times and peak memory.
 The kernel phase also holds the NDT pair kernel at K = 1 against a
@@ -72,13 +86,32 @@ LIGO_CLOUDS = 5  # keyframe_window of the ligo operating point
 # reference itself: at 1024 x 64 beams, stride 2, 8 sweeps, the reference
 # read 0.104 m on the CPU and the port 0.099 m; at this width the port
 # read 0.034 m on the card.
-ODOM_ATE_BOUND = {"NDT_OMP": 0.005, "GICP": 0.050}
-ODOM_KERNEL = {"NDT_OMP": "ndt_pair", "GICP": "gicp_pair"}
+# The bounds of the engines added later were set before their first card
+# run: anisotropic GICP 5 mm (the TPU-era record read it as the reference's
+# most accurate odom engine), SVNNDT and NDT_OMP_MULTIRES 10 mm.
+ODOM_PHASES = {  # label: (method, register changes, kernel, ATE bound)
+    "NDT_OMP": ("NDT_OMP", {}, "ndt_pair", 0.005),
+    "GICP": ("GICP", {}, "gicp_pair", 0.050),
+    "GICP aniso": ("GICP", dict(gicp_source_cov="anisotropic"), "aniso_pair", 0.005),
+    # lo_svn's Berlin point: 20 particles, 8 iterations, h 5, step 1.0, and
+    # the app's 4 polish steps on the NDT score
+    "SVNNDT": ("SVNNDT", dict(svn_resolution=1.0, svn_particles=20, svn_max_iterations=8,
+                              svn_kernel_h=5.0, svn_step_size=1.0, svn_polish_iters=4),
+               "ndt_pair", 0.010),
+    "NDT_OMP_MULTIRES": ("NDT_OMP_MULTIRES", {}, "ndt_pair", 0.010),
+}
 # ATE bound of the ligo phases. The reference's ATE on this 12-sweep replay
 # is not measured (its 30-sweep figures are of another accelerator). On an
 # NVIDIA H100 80GB HBM3 at 700 W the port read 0.0030 m at the operating
 # point and 0.0013 m at parity semantics.
 LIGO_ATE_BOUND = 0.010
+# The resume phase: keyframes run before the checkpoint, per continuous
+# phase. The file carries no RegMap, so a resumed app rebuilds it on its
+# first keyframe: lo_svn (rebuild every 4) splits where the continuous run
+# rebuilds too (keyframe 6); odom builds every keyframe and ligo runs at
+# parity semantics (rebuild every keyframe).
+RESUME_AFTER = {"lo_svn": 5, "odom NDT_OMP": 6, "ligo parity": 6}
+RESUME_TOL_M, RESUME_TOL_RAD = 1e-4, 1e-4
 TIMED_ROUNDS, TIMED_LAUNCHES = 10, 20
 SPIN_CYCLES_PER_S = 2.0e9  # at least the H100's top SM clock (1.98 GHz)
 # kernel vs plain on the same inputs. The pair count may differ by a few in
@@ -127,17 +160,16 @@ def berlin_cfg(tconfig, ouster, imu):
     )
 
 
-def odom_cfg(tconfig, cfg, method):
+def odom_cfg(tconfig, cfg, method, **change):
     """The odom_ndt operating point of bench.py's odom_berlin mode on the
     same sensor (resolution 1.0, 20 iterations, capacity 2^15, at least 4
     points per voxel, grid (160, 160, 32), deskew on, 2 Newton steps per
-    gather)."""
+    gather); ``change`` gives the engine's own settings."""
     import dataclasses
 
-    return dataclasses.replace(cfg, register=tconfig.RegisterConfig(
-        method=method, ndt_resolution=1.0, ndt_max_iterations=20, map_capacity=1 << 15,
-        min_points_per_voxel=4, reg_grid_shape=ODOM_GRID,
-    ))
+    reg = dict(method=method, ndt_resolution=1.0, ndt_max_iterations=20, map_capacity=1 << 15,
+               min_points_per_voxel=4, reg_grid_shape=ODOM_GRID)
+    return dataclasses.replace(cfg, register=tconfig.RegisterConfig(**{**reg, **change}))
 
 
 def ligo_cfg(tconfig, cfg, **change):
@@ -197,7 +229,7 @@ def compare(out, ref):
 def kernel_inputs(torch, replay_path, gt, cfg, dev):
     """Map from one sweep at its true pose; the next sweep's points, their
     rows in the lo_svn RegMap (and its ``gicp_map`` twin) and in an odom-size
-    RegMap, the same rows pre-gathered (``gather_megaT``, for the in-kernel
+    RegMap (and its ``gicp_map_aniso`` twin), the same rows pre-gathered (``gather_megaT``, for the in-kernel
     gather's check), source covariances and the K = 20 particle poses
     around the true pose. Also a ligo-size RegMap from 5 sweeps at their
     true poses, with the sixth sweep's points and rows in it."""
@@ -209,7 +241,8 @@ def kernel_inputs(torch, replay_path, gt, cfg, dev):
     from slamtpu_torch.mapping.gaussian_map import build_map
     from slamtpu_torch.ndt import fused_math
     from slamtpu_torch.ndt.constants import gauss_constants
-    from slamtpu_torch.ndt.gicp import gicp_map, regularize_plane_covariance, stencil_point_covariances
+    from slamtpu_torch.ndt.gicp import (gicp_map, gicp_map_aniso, regularize_plane_covariance,
+                                        stencil_point_covariances)
     from slamtpu_torch.ndt.regmap import build_regmap, grid_rows
     from slamtpu_torch.ndt.svn import INIT_SIGMAS
 
@@ -235,14 +268,16 @@ def kernel_inputs(torch, replay_path, gt, cfg, dev):
     aux = torch.cat([gmap.mean, regularize_plane_covariance(gmap.cov).reshape(-1, 9)], dim=1)
     regmap = build_regmap(gmap, grid_shape=GRID, aux_payload=aux)
     regmap_g = build_regmap(gicp_map(gmap, 0.05), grid_shape=GRID)
-    # the odom_ndt operating point's map: capacity 2^15 on its grid
-    regmap_o = build_regmap(build_map(world_a, scan_a.mask, origin, res, capacity=1 << 15,
-                                      min_points_per_voxel=4), grid_shape=ODOM_GRID)
+    # the odom_ndt operating point's map: capacity 2^15 on its grid, and its
+    # plane-to-plane twin (the anisotropic GICP engine's target)
+    gmap_o = build_map(world_a, scan_a.mask, origin, res, capacity=1 << 15, min_points_per_voxel=4)
+    regmap_o = build_regmap(gmap_o, grid_shape=ODOM_GRID)
+    regmap_oa = build_regmap(gicp_map_aniso(gmap_o), grid_shape=ODOM_GRID)
     # the ligo operating point's map: 5 clouds, capacity 2^16, on its grid
-    regmap_l = build_regmap(build_map(
-        torch.cat([se3.transform_points(p, s.points) for s, p in clouds[:LIGO_CLOUDS]]),
-        torch.cat([s.mask for s, _ in clouds[:LIGO_CLOUDS]]), origin, res, capacity=1 << 16,
-        min_points_per_voxel=4), grid_shape=LIGO_GRID)
+    ring = (torch.cat([se3.transform_points(p, s.points) for s, p in clouds[:LIGO_CLOUDS]]),
+            torch.cat([s.mask for s, _ in clouds[:LIGO_CLOUDS]]), origin, res, 1 << 16)
+    regmap_l = build_regmap(build_map(*ring[:4], capacity=ring[4], min_points_per_voxel=4),
+                            grid_shape=LIGO_GRID)
     scan_l, pose_l = clouds[LIGO_CLOUDS]
     pts, mask = scan_b.points, scan_b.mask
     N = pts.shape[0]
@@ -256,16 +291,18 @@ def kernel_inputs(torch, replay_path, gt, cfg, dev):
     d1, d2, _ = gauss_constants(res, cfg.register.svn_outlier_ratio)
     inp = dict(
         N=N, K=K, pts=pts, mask=mask, pose=pose_b, ptsT=pts.t().contiguous(), regmap=regmap,
-        regmap_g=regmap_g, regmap_o=regmap_o, regmap_l=regmap_l,
+        regmap_g=regmap_g, regmap_o=regmap_o, regmap_oa=regmap_oa, regmap_l=regmap_l, ring=ring,
         ptsT_l=scan_l.points.t().contiguous(),
         rows_l=grid_rows(scan_l.points, scan_l.mask, pose_l, regmap_l, LIGO_GRID),
         p_ndt1_l=fused_math.pose_params(Pose3(pose_l.rot[None], pose_l.trans[None]), d1, d2),
         rows=grid_rows(pts, mask, pose_b, regmap, GRID),
         rows_g=grid_rows(pts, mask, pose_b, regmap_g, GRID),
         rows_o=grid_rows(pts, mask, pose_b, regmap_o, ODOM_GRID),
+        rows_oa=grid_rows(pts, mask, pose_b, regmap_oa, ODOM_GRID),
         megaT=fused_math.gather_megaT(pts, mask, pose_b, regmap, GRID),
         megaT_g=fused_math.gather_megaT(pts, mask, pose_b, regmap_g, GRID),
         megaT_aux=fused_math.gather_megaT(pts, mask, pose_b, regmap, GRID, table="aux"),
+        megaT_oa=fused_math.gather_megaT(pts, mask, pose_b, regmap_oa, ODOM_GRID),
         scovT=stencil_point_covariances(
             pts, mask, (cfg.meta.columns_per_frame, ing.luts.subset_channels)
         ).reshape(N, 9).t().contiguous(),
@@ -311,6 +348,7 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
     """Each kernel against its plain version at the main paths' shapes, with
     times, bounds and the in-kernel gather's checks. Returns the kernels'
     JSON entries."""
+    from slamtpu_torch.mapping import gaussian_map
     from slamtpu_torch.ndt import fused_math
     from slamtpu_torch.ndt.regmap import grid_rows
 
@@ -318,6 +356,7 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
     N, K, ptsT, scovT = inp["N"], inp["K"], inp["ptsT"], inp["scovT"]
     packed, packed_g, packed_o = inp["regmap"].packed, inp["regmap_g"].packed, inp["regmap_o"].packed
     packed_aux, packed_l = inp["regmap"].packed_aux, inp["regmap_l"].packed
+    packed_oa, rows_oa = inp["regmap_oa"].packed, inp["rows_oa"]
     rows, rows_g, rows_o, rows_l = inp["rows"], inp["rows_g"], inp["rows_o"], inp["rows_l"]
     ptsT_l, p_ndt1_l = inp["ptsT_l"], inp["p_ndt1_l"]
 
@@ -327,10 +366,11 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
     # the in-kernel gather equals the same kernel on the pre-gathered rows
     for fn, p, tab, r, megaT in ((fused_math.ndt_pair, inp["p_ndt"], packed, rows, inp["megaT"]),
                                  (fused_math.gicp_pair, inp["p_gicp"], packed_g, rows_g, inp["megaT_g"]),
-                                 (aniso, inp["p_aniso"], packed_aux, rows, inp["megaT_aux"])):
+                                 (aniso, inp["p_aniso"], packed_aux, rows, inp["megaT_aux"]),
+                                 (aniso, inp["p_aniso"], packed_oa, rows_oa, inp["megaT_oa"])):
         assert torch.equal(fn(p, ptsT, tab, r), fn(p, ptsT, *fused_math.pregathered_table(megaT))), fn
     log("in-kernel gather == pre-gathered rows, bit for bit (ndt_pair K=20, gicp_pair K=1, "
-        "aniso_pair K=1)")
+        "aniso_pair K=1 on the aux table and on the odom plane-to-plane table)")
     lib = fused_math._load()
     log(f"pair kernel: grid {lib.ndt_pair_grid(N, torch.cuda.current_device())} persistent "
         f"blocks for N={N}; blocks per SM " + ", ".join(
@@ -338,11 +378,16 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
             for name, cost in COSTS.items() for k in (K, 1)))
 
     b1 = "slamtpu/ndt/pallas_math.py:37 (_kernel, gicp=False; pallas_call :371)"
+    b3 = "slamtpu/ndt/pallas_math.py:185 (_kernel_aniso; pallas_call :355)"
     cases = [  # name, label, K, kernel, plain, (table, rows) it gathers from, TPU source
         ("ndt_pair", "K=20", K, lambda: fused_math.ndt_pair(inp["p_ndt"], ptsT, packed, rows),
          lambda: fused_math._ndt_pair_plain(inp["p_ndt"], ptsT, packed, rows), (packed, rows), b1),
         ("ndt_pair", "K=1", 1, lambda: fused_math.ndt_pair(inp["p_ndt1"], ptsT, packed, rows),
          lambda: fused_math._ndt_pair_plain(inp["p_ndt1"], ptsT, packed, rows), (packed, rows), b1),
+        ("ndt_pair", "K=20, odom map", K,
+         lambda: fused_math.ndt_pair(inp["p_ndt"], ptsT, packed_o, rows_o),
+         lambda: fused_math._ndt_pair_plain(inp["p_ndt"], ptsT, packed_o, rows_o),
+         (packed_o, rows_o), b1),
         ("ndt_pair", "K=1, odom map", 1,
          lambda: fused_math.ndt_pair(inp["p_ndt1"], ptsT, packed_o, rows_o),
          lambda: fused_math._ndt_pair_plain(inp["p_ndt1"], ptsT, packed_o, rows_o),
@@ -357,7 +402,10 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
          "slamtpu/ndt/pallas_math.py:37 (_kernel, gicp=True, :96-103; pallas_call :371)"),
         ("aniso_pair", "K=1", 1, lambda: aniso(inp["p_aniso"], ptsT, packed_aux, rows),
          lambda: fused_math._aniso_pair_plain(inp["p_aniso"], ptsT, packed_aux, rows, scovT),
-         (packed_aux, rows), "slamtpu/ndt/pallas_math.py:185 (_kernel_aniso; pallas_call :355)"),
+         (packed_aux, rows), b3),
+        ("aniso_pair", "K=1, odom aniso map", 1, lambda: aniso(inp["p_aniso"], ptsT, packed_oa, rows_oa),
+         lambda: fused_math._aniso_pair_plain(inp["p_aniso"], ptsT, packed_oa, rows_oa, scovT),
+         (packed_oa, rows_oa), b3),
     ]
     measured = []
     for name, label, k, kern, plain, gathered, replaces in cases:
@@ -402,18 +450,32 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
         lambda: aniso(inp["p_aniso"], ptsT, packed_aux, grid_rows(pts, mask, pose, regmap, GRID)))
     log(f"[{card}] gather_megaT(table=\"aux\") {gather_aux_ms:.4f} ms ({spread[0]}); grid_rows + "
         f"aniso_pair {polish_ms:.4f} ms ({spread[1]}) (N={N}, lo_svn map)")
+    # the map build's largest segment sum (sum x x^T, 9 columns) on the
+    # 5-cloud ring, on the (values, seg) its statistics pass sorts: the
+    # fixed-order sum against index_add_'s atomic one
+    ring_pts, ring_mask, ring_origin, ring_res, ring_cap = inp["ring"]
+    keys, rel = gaussian_map._corner_keys(ring_pts, ring_mask, ring_origin, ring_res)
+    order, _, _, seg = gaussian_map._sorted_segments(keys, ring_cap)
+    srel = rel[order]
+    sxx = (srel[:, :, None] * srel[:, None, :]).reshape(-1, 9)
+    scan_ms, atomic_ms, spread = timed_pair(
+        torch, lambda: gaussian_map.segment_sum(sxx, seg, ring_cap + 1),
+        lambda: torch.zeros((ring_cap + 1, 9), device=dev).index_add_(0, seg, sxx))
+    log(f"[{card}] segment_sum {scan_ms:.4f} ms ({spread[0]}); index_add_ {atomic_ms:.4f} ms "
+        f"({spread[1]}) (sum x x^T of {sxx.shape[0]} points into {ring_cap + 1} segments)")
+    # one entry per kernel, from its first case; its other cases under "cases"
     entries = []
     for m in measured:
-        if m["label"] != "K=20" and m["name"] == "ndt_pair":
+        if any(e["name"] == m["name"] for e in entries):
             continue
         e = {k: m[k] for k in ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "share_of_bound", "unique_rows", "K", "N", "replaces")}
         e.update(route="cuda", source="slamtpu_torch/csrc/ndt_pair.cu", launches=0, library_ms=None)
+        e["cases"] = [{k: x[k] for k in ("label", "K", "ms", "plain_ms", "bound_ms", "bound_by",
+                                         "share_of_bound", "unique_rows", "max_abs_err")}
+                      for x in measured if x["name"] == m["name"] and x is not m]
         if m["name"] == "ndt_pair":
             e["gather_megaT_ms"], e["grid_rows_ms"] = gather_ms, index_ms
-            e["at_k1"] = [{k: x[k] for k in ("label", "ms", "plain_ms", "bound_ms", "bound_by",
-                                              "share_of_bound", "unique_rows", "max_abs_err")}
-                          for x in measured if x["name"] == "ndt_pair" and x["K"] == 1]
         if m["name"] == "aniso_pair":
             e["gather_megaT_ms"], e["grid_rows_ms"] = gather_aux_ms, index_ms
             e["grid_rows_plus_kernel_ms"] = polish_ms
@@ -439,7 +501,7 @@ def replay_phase(torch, label, app, replay_path, gt, card, kernels, ate_bound):
     """``app.run_replay`` with every launch count at 0 and a warning on
     every host sync; checks that ``kernels`` launched, that every pose and
     covariance is finite and that the ATE is below ``ate_bound``. Returns
-    the launch counts of the run."""
+    the launch counts of the run and its trajectory."""
     import numpy as np
 
     from slamtpu_torch.apps.common import ate_rmse, np_between
@@ -493,6 +555,46 @@ def replay_phase(torch, label, app, replay_path, gt, card, kernels, ate_bound):
             f"mean {st['mean_ms']:.3f} ms over {st['n']}")
     log(f"launches in the {label} run: {launches}")
     assert ate < ate_bound, f"{label}: ATE {ate} m"
+    return launches, traj
+
+
+def resume_phase(torch, label, make_app, replay_path, split, continuous, card):
+    """The first ``split`` keyframes in one app, ``save_checkpoint``,
+    ``resume_from`` in a new app, the rest there; the combined trajectory
+    against the continuous run's. Returns the launch counts."""
+    import numpy as np
+
+    from slamtpu_torch.ndt import fused_math
+
+    for k in fused_math.LAUNCHES:
+        fused_math.LAUNCHES[k] = 0
+    first = make_app()
+    frames = list(first.ingest.synced_frames(replay_path))
+    for synced in frames[:split]:
+        first.process(synced)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "checkpoint.npz")
+        first.save_checkpoint(path)
+        size = os.path.getsize(path)
+        resumed = make_app().resume_from(path)
+    for synced in frames[split:]:
+        resumed.process(synced)
+    torch.cuda.synchronize()
+    launches = dict(fused_math.LAUNCHES)
+    combined = list(first.trajectory) + list(resumed.trajectory)
+    assert len(combined) == len(continuous), (label, len(combined), len(continuous))
+    err_m, err_rad = 0.0, 0.0
+    for a, b in zip(combined, continuous):
+        assert a.frame_id == b.frame_id
+        err_m = max(err_m, float(np.linalg.norm(np.asarray(a.pose.trans, np.float64)
+                                                - np.asarray(b.pose.trans, np.float64))))
+        dR = np.asarray(b.pose.rot, np.float64).T @ np.asarray(a.pose.rot, np.float64)
+        W = 0.5 * (dR - dR.T)  # small angle from the skew part
+        err_rad = max(err_rad, float(np.linalg.norm([W[2, 1], W[0, 2], W[1, 0]])))
+    log(f"[{card}] resume {label}: {split} keyframes, checkpoint ({size / 2**20:.2f} MiB), "
+        f"{len(frames) - split} resumed; against the continuous run: max {err_m:.3g} m, "
+        f"{err_rad:.3g} rad (bounds {RESUME_TOL_M} m, {RESUME_TOL_RAD} rad); launches {launches}")
+    assert err_m <= RESUME_TOL_M and err_rad <= RESUME_TOL_RAD, (label, err_m, err_rad)
     return launches
 
 
@@ -533,20 +635,27 @@ def main():
         gt = simulator_np.simulate_replay(path, cfg.meta, cfg.lidar, n_sweeps=N_SWEEPS, skewed=True)
         log(f"simulated {N_SWEEPS} skewed sweeps in {time.perf_counter() - t0:.1f} s")
         entries = kernel_phase(torch, path, gt, cfg, dev, card)
-        phases = [("lo_svn", lambda: LoSvnApp(cfg, dev), ("ndt_pair", "aniso_pair"), 0.005)]
-        for method in ODOM_KERNEL:
-            phases.append((f"odom {method}",
-                           lambda m=method: OdomNdtApp(odom_cfg(tconfig, cfg, m), dev, window=6),
-                           (ODOM_KERNEL[method],), ODOM_ATE_BOUND[method]))
-        phases.append(("ligo", lambda: LigoTcApp(ligo_cfg(tconfig, cfg), dev, window=6),
-                       ("ndt_pair",), LIGO_ATE_BOUND))
-        phases.append(("ligo parity",
-                       lambda: LigoTcApp(ligo_cfg(tconfig, cfg, map_rebuild_every=1,
-                                                  smoother_solver="qr"), dev, window=6),
-                       ("ndt_pair",), LIGO_ATE_BOUND))
+        phases = {"lo_svn": (lambda: LoSvnApp(cfg, dev), ("ndt_pair", "aniso_pair"), 0.005)}
+        for label, (method, change, kernel, bound) in ODOM_PHASES.items():
+            phases[f"odom {label}"] = (
+                lambda m=method, c=change: OdomNdtApp(odom_cfg(tconfig, cfg, m, **c), dev, window=6),
+                (kernel,), bound)
+        phases["ligo"] = (lambda: LigoTcApp(ligo_cfg(tconfig, cfg), dev, window=6), ("ndt_pair",),
+                          LIGO_ATE_BOUND)
+        phases["ligo parity"] = (
+            lambda: LigoTcApp(ligo_cfg(tconfig, cfg, map_rebuild_every=1, smoother_solver="qr"), dev,
+                              window=6),
+            ("ndt_pair",), LIGO_ATE_BOUND)
         launches = {k: 0 for k in fused_math.LAUNCHES}
-        for label, make_app, kernels, bound in phases:
-            for k, v in replay_phase(torch, label, make_app(), path, gt, card, kernels, bound).items():
+        continuous = {}
+        for label, (make_app, kernels, bound) in phases.items():
+            counts, continuous[label] = replay_phase(torch, label, make_app(), path, gt, card, kernels,
+                                                     bound)
+            for k, v in counts.items():
+                launches[k] += v
+        for label, split in RESUME_AFTER.items():
+            counts = resume_phase(torch, label, phases[label][0], path, split, continuous[label], card)
+            for k, v in counts.items():
                 launches[k] += v
     for e in entries:
         e["launches"] = launches[e["name"]]

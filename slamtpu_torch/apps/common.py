@@ -163,17 +163,20 @@ def maybe_deskew(scan: ScanBuffer, synced: SyncedFrame, ref_lla, enabled: bool) 
 
 class MapRebuildCadence:
     """Rebuild cadence of the cached RegMap (RegisterConfig.map_rebuild_every):
-    periodic, and forced when the map origin moves."""
+    periodic, forced when the map origin moves, and forced once after a
+    resume (``force_next``: checkpoints do not carry the RegMap)."""
 
     def __init__(self, register_cfg, grid_shape, device, with_aux: bool = False):
         self._every = max(int(register_cfg.map_rebuild_every), 1)
         self._idx = 0
+        self.force_next = False
         self.regmap = empty_regmap(register_cfg.map_capacity, grid_shape, device,
                                    with_aux=with_aux)
 
     def tick(self, force: bool = False) -> bool:
         """Advance one keyframe; True when this keyframe must rebuild."""
-        rebuild = force or (self._idx % self._every == 0)
+        rebuild = force or self.force_next or (self._idx % self._every == 0)
+        self.force_next = False
         self._idx += 1
         return rebuild
 

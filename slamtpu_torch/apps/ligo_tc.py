@@ -21,9 +21,10 @@ and ships the factor arrays through pinned memory as one buffer. Other host
 reads: one per Newton outer iteration (``fused_math.HOST_READS``) and the
 RegMap overflow count every 32 keyframes.
 
-Not ported (ROADMAP A, item 12), each raising NotImplementedError:
-checkpoints (``save_checkpoint``, ``resume_from``), ``use_regmap=False``
-and the search modes other than DIRECT7.
+``save_checkpoint``/``resume_from`` carry the window, the keyframe ring
+and the host state (``runtime.checkpoint``). Not ported, each raising
+NotImplementedError: ``use_regmap=False`` (ROADMAP A, "Do not port
+these") and the search modes other than DIRECT7 (ROADMAP A 2.4).
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ from ..fusion.smoother import SmootherConfig, marginal_covariance, optimize
 from ..ins.gravity import gravity_wgs84
 from ..mapping import gaussian_map
 from ..ndt.newton import NewtonConfig
+from ..runtime import checkpoint
 from ..runtime.config import PipelineConfig
 from ..runtime.device_timer import DeviceStageTimer
 from ..runtime.device_timer import span as _span
@@ -122,11 +124,12 @@ class LigoTcApp:
     def __post_init__(self):
         self.device = torch.device(self.device)
         reg = self.cfg.register
-        todo = "is not ported (ROADMAP A, item 12)"
         if not reg.use_regmap:
-            raise NotImplementedError(f"use_regmap=False (the sorted-key objective) {todo}")
+            raise NotImplementedError("use_regmap=False (the sorted-key objective) is not ported "
+                                      "(ROADMAP A, 'Do not port these')")
         if reg.search_method != "DIRECT7":
-            raise NotImplementedError(f"the {reg.search_method} search mode {todo}")
+            raise NotImplementedError(f"the {reg.search_method} search mode is not ported "
+                                      "(ROADMAP A 2.4)")
         self.ingest = IngestPipeline(self.cfg, self.device)
         self.newton_cfg = NewtonConfig(
             resolution=reg.ndt_resolution,
@@ -177,10 +180,12 @@ class LigoTcApp:
         )
 
     def save_checkpoint(self, path: str):
-        raise NotImplementedError("ligo_tc checkpoints are not ported (ROADMAP A, item 12)")
+        """Write the state a later run continues from (``checkpoint.save_ligo_tc``)."""
+        checkpoint.save_ligo_tc(path, self)
 
     def resume_from(self, path: str):
-        raise NotImplementedError("ligo_tc checkpoints are not ported (ROADMAP A, item 12)")
+        """Continue from a checkpoint of either package."""
+        return checkpoint.load_ligo_tc(path, self)
 
     def run_replay(self, replay_path: str, max_keyframes: int = 10**9):
         for synced in self.ingest.synced_frames(replay_path):

@@ -8,6 +8,9 @@ stencil source covariances, run SVN-NDT with the plane-to-plane polish,
 and insert the new cloud into the ring. All of it is queued on one device
 without host syncs in between; results are read back in batches (``flush``)
 so the next sweep's decode overlaps the device work.
+
+``save_checkpoint``/``resume_from`` carry the ring, the origin and the
+particle generator (``runtime.checkpoint``).
 """
 from __future__ import annotations
 
@@ -24,9 +27,10 @@ from ..core.se3 import Pose3
 from ..lidar.deskew import deskew_points
 from ..lidar.project import project_frame_packed
 from ..mapping import gaussian_map
-from ..ndt.gicp import regularize_plane_covariance, stencil_point_covariances
+from ..ndt.gicp import regularize_plane_covariance, sweep_point_covariances
 from ..ndt.regmap import build_regmap
 from ..ndt.svn import SvnConfig, svn_align_reg
+from ..runtime import checkpoint
 from ..runtime.config import PipelineConfig
 from ..runtime.device_timer import DeviceStageTimer
 from ..runtime.device_timer import span as _span
@@ -66,7 +70,7 @@ def _lo_svn_core(
     min_points: int,
     grid_shape: tuple,
     publish_svn: bool = True,
-    scan_grid: tuple = None,  # (cols, sub) of the sweep, for the stencil covariances
+    scan_grid: tuple = None,  # (cols, sub) of the sweep: stencil covariances (else voxel ones)
     exclude_recent: Optional[int] = None,  # rebuilds skip the newest ring clouds
     timer=None,
 ):
@@ -96,7 +100,8 @@ def _lo_svn_core(
     src_cov = None
     if aniso:
         with _span(timer, "src_covariances"):
-            src_cov = stencil_point_covariances(new_points, new_mask, scan_grid)
+            src_cov = sweep_point_covariances(new_points, new_mask, scan_grid, svn_cfg.resolution,
+                                              capacity, min_points)
     with _span(timer, "svn"):
         res = svn_align_reg(new_points, new_mask, regmap, prior, svn_cfg, grid_shape,
                             src_cov=src_cov, init_noise=init_noise)
@@ -151,13 +156,13 @@ class LoSvnApp:
     def __post_init__(self):
         self.device = torch.device(self.device)
         reg = self.cfg.register
-        # the parts of the reference app this port does not carry yet
+        # the parts of the reference app this port does not carry
         if not reg.use_regmap:
-            raise NotImplementedError("use_regmap=False (the sorted-key svn_align path) is not ported")
+            raise NotImplementedError("use_regmap=False (the sorted-key svn_align path) is not "
+                                      "ported (ROADMAP A, 'Do not port these')")
         if reg.svn_search_method != "DIRECT7":
-            raise NotImplementedError(f"svn search method {reg.svn_search_method} is not ported")
-        if reg.svn_src_cov != "stencil":
-            raise NotImplementedError("only the stencil source covariances are ported")
+            raise NotImplementedError(f"svn search method {reg.svn_search_method} is not ported "
+                                      "(ROADMAP A 2.4)")
         self.ingest = IngestPipeline(self.cfg, self.device)
         self.svn_cfg = SvnConfig(
             resolution=reg.svn_resolution,
@@ -187,7 +192,9 @@ class LoSvnApp:
         self._kf_mask = None
         self._kf_head = 0
         self._origin = None  # (3,) float32 host numpy
-        self._scan_grid = (self.cfg.meta.columns_per_frame, self.ingest.luts.subset_channels)
+        # range-image layout of the sweep, for the stencil source covariances
+        self._scan_grid = ((self.cfg.meta.columns_per_frame, self.ingest.luts.subset_channels)
+                           if reg.svn_src_cov == "stencil" else None)
         self._cadence = MapRebuildCadence(
             reg, self.grid_shape, self.device,
             with_aux=self.svn_cfg.polish_iters > 0 and self.svn_cfg.polish_objective == "gicp_aniso",
@@ -202,6 +209,14 @@ class LoSvnApp:
     def stats(self) -> StatsArchive:
         self.flush()
         return self._stats_archive
+
+    def save_checkpoint(self, path: str):
+        """Write the state a later run continues from (``checkpoint.save_lo_svn``)."""
+        checkpoint.save_lo_svn(path, self)
+
+    def resume_from(self, path: str):
+        """Continue from a checkpoint of either package."""
+        return checkpoint.load_lo_svn(path, self)
 
     def run_replay(self, replay_path: str, max_keyframes: int = 10**9):
         for synced in self.ingest.synced_frames(replay_path):

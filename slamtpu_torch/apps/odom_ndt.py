@@ -11,12 +11,17 @@ covariance. The host ships one (36,) vector in and reads one (100,) vector
 out per keyframe, two keyframes late, so the fetch overlaps the next
 dispatch.
 
-Engines ported: ``NDT_OMP`` (``newton_align_fused`` over the NDT pair
-kernel) and isotropic ``GICP`` (``gicp_align_fused`` over the VGICP pair
-kernel), both on the RegMap layout. The others raise NotImplementedError
-(ROADMAP A, item 11): SVNNDT, NDT_OMP_MULTIRES, anisotropic GICP, the
-KDTREE and DIRECT1 search modes, the sorted-key path (use_regmap=False)
-and loop closure.
+Engines, all on the RegMap layout: ``NDT_OMP`` (``newton_align_fused``
+over the NDT pair kernel); ``GICP``, isotropic (over the VGICP pair
+kernel) or with ``gicp_source_cov="anisotropic"`` (``gicp_align_aniso``
+over the plane-to-plane pair kernel, with stencil or voxel source
+covariances); ``SVNNDT`` (``svn_align_reg``, the particle draws from the
+app's seeded generator, one draw a keyframe); and ``NDT_OMP_MULTIRES``
+(``multires_align`` over a two-level pyramid). These raise
+NotImplementedError: the KDTREE and DIRECT1 search modes (ROADMAP A 2.4),
+the sorted-key path (use_regmap=False; ROADMAP A, "Do not port these")
+and loop closure (ROADMAP A 4). ``save_checkpoint``/``resume_from`` carry
+the window and the host state (``runtime.checkpoint``).
 
 Dtypes: registration runs in float32. The window carry (poses, priors,
 between factors, sqrt-information) is float64 on every device: the
@@ -26,9 +31,9 @@ TPU.) The window fill count ``n`` is a host integer: it advances by one per
 keyframe up to the window size, so no device value decides it.
 
 Host syncs per keyframe in this module: one per Newton outer iteration
-(the loop's exit test), one in ``torch.linalg.eigh`` (the LiDAR covariance
-floor), and the lagged read of the result vector and the point count. The
-map and RegMap build adds its own (``ndt/regmap.py``).
+(the loop's exit test; none for SVNNDT), one in ``torch.linalg.eigh`` (the
+LiDAR covariance floor), and the lagged read of the result vector and the
+point count. The map and RegMap build adds its own (``ndt/regmap.py``).
 """
 from __future__ import annotations
 
@@ -46,10 +51,13 @@ from ..fusion import robust
 from ..fusion.graph import sqrt_info_from_cov
 from ..fusion.smoother import optimize_pose_window, pose_marginal_covariance
 from ..mapping import gaussian_map
-from ..ndt.fused_math import newton_align_fused
-from ..ndt.gicp import gicp_map
-from ..ndt.newton import NewtonConfig
+from ..ndt.fused_math import gicp_align_aniso, newton_align_fused
+from ..ndt.gicp import gicp_map, gicp_map_aniso, sweep_point_covariances
+from ..ndt.multires import build_pyramid, multires_align
+from ..ndt.newton import NewtonConfig, NewtonResult
 from ..ndt.regmap import RegMap, build_regmap
+from ..ndt.svn import SvnConfig, SvnResult, svn_align_reg
+from ..runtime import checkpoint
 from ..runtime.config import PipelineConfig
 from ..runtime.device_timer import DeviceStageTimer
 from ..runtime.device_timer import span as _span
@@ -60,6 +68,9 @@ from .common import (IngestPipeline, TrajectoryEntry, ins_pose_ned, maybe_deskew
 log = logging.getLogger("slamtpu_torch.odom_ndt")
 
 KNOWN_METHODS = ("NDT_OMP", "SVNNDT", "GICP", "NDT_OMP_MULTIRES")
+# seeds the SVNNDT particle draws; the reference seeds its key with the same
+# number (PRNGKey(1234), slamtpu/apps/odom_ndt.py:501)
+PARTICLE_SEED = 1234
 
 
 def _register_step(
@@ -80,34 +91,74 @@ def _register_step(
     reg_pose: Pose3 = None,
     regmap_cache: RegMap = None,
     rebuild: bool = True,
+    svn_cfg: SvnConfig = None,  # SVNNDT
+    init_noise=None,  # (K, 6) standard-normal particle draws (SVNNDT)
+    scan_grid: tuple = None,  # (cols, sub) of new_points: stencil source
+    #   covariances for the anisotropic GICP engine (else voxel ones)
 ):
     """Build the target map and register by the configured engine (the
-    reference's registration_method switch, run/pipeline.cpp:464-481).
-    ``final_eval`` is newton_align_fused's contract switch: the app keeps
-    the reference's default (score and Hessian of the last applied step).
-    ``reg_pose`` adds the prior-pose pull toward it (with
-    ``cfg.reg_weight``).
+    reference's registration_method switch, run/pipeline.cpp:464-481):
+    NDT_OMP -> Newton NDT, GICP -> VGICP (plane-to-plane with
+    ``cfg.gicp_aniso``), SVNNDT -> the SVN posterior, NDT_OMP_MULTIRES ->
+    the coarse-to-fine pyramid. ``final_eval`` is newton_align_fused's
+    contract switch for NDT_OMP and isotropic GICP: the app keeps the
+    reference's default (score and Hessian of the last applied step); the
+    plane-to-plane and pyramid engines take the contract of the reference's
+    XLA loop, which they run on every backend. ``reg_pose`` adds the
+    prior-pose pull toward it (with ``cfg.reg_weight``).
 
     With ``regmap_cache`` (NDT_OMP) the map and RegMap are built only when
     the host flag ``rebuild`` is set, in the cache's dtypes, and the call
     returns ``(result, regmap)`` so the caller carries the cache forward
     (RegisterConfig.map_rebuild_every)."""
+    if method == "NDT_OMP_MULTIRES":
+        with _span(timer, "map_build"):
+            levels = build_pyramid(
+                target_points, target_mask, origin, [2.0 * cfg.resolution, cfg.resolution],
+                capacity, grid_shape, min_points, [max(cfg.max_iterations // 3, 3), cfg.max_iterations],
+            )
+        with _span(timer, "newton"):
+            return multires_align(new_points, new_mask, levels, init_guess)
+    aniso = method == "GICP" and cfg.gicp_aniso
     regmap = regmap_cache
     if regmap_cache is None or rebuild:
         with _span(timer, "map_build"):
             gmap = gaussian_map.build_map(target_points, target_mask, origin, cfg.resolution,
                                           capacity=capacity, min_points_per_voxel=min_points)
-            if method == "GICP":
+            if aniso:
+                gmap = gicp_map_aniso(gmap)
+            elif method == "GICP":
                 gmap = gicp_map(gmap)
             regmap = build_regmap(gmap, grid_shape=grid_shape)
             if regmap_cache is not None:
                 regmap = RegMap(*(None if a is None else a.to(c.dtype)
                                   for a, c in zip(regmap, regmap_cache)))
-    with _span(timer, "newton"):
-        res = newton_align_fused(new_points, new_mask, regmap, init_guess, cfg, grid_shape,
-                                 inner_iters=inner_iters, reg_pose=reg_pose, final_eval=final_eval,
-                                 _gicp=method == "GICP")
+    if method == "SVNNDT":
+        with _span(timer, "svn"):
+            res = _svn_as_newton(svn_align_reg(new_points, new_mask, regmap, init_guess, svn_cfg,
+                                               grid_shape, init_noise=init_noise), new_points.dtype)
+    elif aniso:
+        with _span(timer, "src_covariances"):
+            src_cov = sweep_point_covariances(new_points, new_mask, scan_grid, cfg.resolution,
+                                              capacity, min_points)
+        with _span(timer, "newton"):
+            res = gicp_align_aniso(new_points, new_mask, src_cov, regmap, init_guess, cfg, grid_shape)
+    else:
+        with _span(timer, "newton"):
+            res = newton_align_fused(new_points, new_mask, regmap, init_guess, cfg, grid_shape,
+                                     inner_iters=inner_iters, reg_pose=reg_pose,
+                                     final_eval=final_eval, _gicp=method == "GICP")
     return res if regmap_cache is None else (res, regmap)
+
+
+def _svn_as_newton(res: SvnResult, dtype) -> NewtonResult:
+    """The SVN posterior in the Newton interface: H = -(cov + 1e-9 I)^-1, so
+    that the LiDAR covariance -(H)^-1 is the posterior covariance."""
+    cov = res.covariance
+    eye = torch.eye(6, dtype=cov.dtype, device=cov.device)
+    return NewtonResult(res.pose, -torch.linalg.inv_ex(cov + 1e-9 * eye)[0], res.score.to(dtype),
+                        res.iterations, res.converged,
+                        torch.zeros((), dtype=torch.int32, device=cov.device))
 
 
 def _odom_fused_step(
@@ -131,6 +182,9 @@ def _odom_fused_step(
     tgt_exclude: int = 0,  # RegisterConfig.odom_target_exclude
     final_eval: bool = False,  # see _register_step
     timer=None,
+    svn_cfg: SvnConfig = None,  # SVNNDT
+    init_noise=None,  # (K, 6) particle draws (SVNNDT)
+    scan_grid: tuple = None,  # see _register_step
 ):
     """One complete odometry keyframe: (new carry, (100,) result vector
     [pose rot(9), trans(3), marginal cov(36), lidar cov(36), rel rot(9),
@@ -178,7 +232,9 @@ def _odom_fused_step(
         rel_ins = Pose3(flat[24:33].reshape(3, 3).to(f32), flat[33:36].to(f32))
         guess = se3.where(flat[23] > 0.5, se3.compose(prev32, rel_ins), guess)
     res = _register_step(target, target_mask, new_points, new_mask, guess, origin, cfg, capacity,
-                         min_points, grid_shape, method, inner_iters, final_eval, timer)
+                         min_points, grid_shape, method=method, inner_iters=inner_iters,
+                         final_eval=final_eval, timer=timer, svn_cfg=svn_cfg,
+                         init_noise=init_noise, scan_grid=scan_grid)
     with _span(timer, "covariance"):
         blended32, w = robust.deviation_gated_blend(guess, res.pose, max_td, max_rd)
         blended = se3.cast(blended32, cd)
@@ -262,19 +318,16 @@ class OdomNdtApp:
             self.method = reg.method
         if self.method not in KNOWN_METHODS:
             raise ValueError(f"unknown registration method {self.method!r}; known: {KNOWN_METHODS}")
-        # the parts of the reference app this port does not carry yet
-        # (ROADMAP A, item 11): they raise instead of running something else
-        todo = "is not ported (ROADMAP A, item 11)"
-        if self.method in ("SVNNDT", "NDT_OMP_MULTIRES"):
-            raise NotImplementedError(f"the {self.method} engine {todo}")
-        if self.method == "GICP" and reg.gicp_source_cov == "anisotropic":
-            raise NotImplementedError(f"gicp_source_cov='anisotropic' {todo}")
-        if reg.search_method != "DIRECT7":
-            raise NotImplementedError(f"the {reg.search_method} search mode {todo}")
+        # the parts of the reference app this port does not carry: they
+        # raise instead of running something else
+        search = reg.svn_search_method if self.method == "SVNNDT" else reg.search_method
+        if search != "DIRECT7":
+            raise NotImplementedError(f"the {search} search mode is not ported (ROADMAP A 2.4)")
         if not reg.use_regmap:
-            raise NotImplementedError(f"use_regmap=False (the sorted-key objective) {todo}")
+            raise NotImplementedError("use_regmap=False (the sorted-key objective) is not ported "
+                                      "(ROADMAP A, 'Do not port these')")
         if self.loop_closure:
-            raise NotImplementedError(f"loop_closure=True {todo}")
+            raise NotImplementedError("loop_closure=True is not ported (ROADMAP A 4)")
         self.ingest = IngestPipeline(self.cfg, self.device)
         self.newton_cfg = NewtonConfig(
             resolution=reg.ndt_resolution,
@@ -283,7 +336,32 @@ class OdomNdtApp:
             trans_eps=reg.gicp_transform_epsilon if self.method == "GICP"
             else reg.ndt_transform_epsilon,
             gicp_max_corr_dist=reg.gicp_corr_dist_threshold,
+            gicp_aniso=reg.gicp_source_cov == "anisotropic",
         )
+        # the anisotropic GICP engine's source covariances come from the
+        # sweep's range-image stencil (RegisterConfig.svn_src_cov)
+        self._scan_grid = (
+            (self.cfg.meta.columns_per_frame, self.ingest.luts.subset_channels)
+            if self.newton_cfg.gicp_aniso and reg.svn_src_cov == "stencil" else None
+        )
+        self.svn_cfg = None
+        self.generator = None
+        if self.method == "SVNNDT":
+            self.svn_cfg = SvnConfig(
+                resolution=reg.svn_resolution,
+                outlier_ratio=reg.svn_outlier_ratio,
+                num_particles=reg.svn_particles,
+                max_iterations=reg.svn_max_iterations,
+                kernel_h=reg.svn_kernel_h,
+                step_size=reg.svn_step_size,
+                stop_thresh=reg.svn_stop_thresh,
+                polish_iters=reg.svn_polish_iters,
+                # the RegMap carries no aux payload: the target is rebuilt
+                # every keyframe, so the polish stays on the NDT score
+                polish_objective="ndt",
+            )
+            self.generator = torch.Generator(device=self.device)
+            self.generator.manual_seed(PARTICLE_SEED)
         self.grid_shape = tuple(reg.reg_grid_shape)
         # multi-viewpoint registration target, clamped to the smoother window
         self.tgt_window = max(1, min(int(reg.odom_target_window), self.window))
@@ -314,6 +392,14 @@ class OdomNdtApp:
     def stats(self) -> StatsArchive:
         self.flush()
         return self._stats
+
+    def save_checkpoint(self, path: str):
+        """Write the state a later run continues from (``checkpoint.save_odom_ndt``)."""
+        checkpoint.save_odom_ndt(path, self)
+
+    def resume_from(self, path: str):
+        """Continue from a checkpoint of either package."""
+        return checkpoint.load_odom_ndt(path, self)
 
     def run_replay(self, replay_path: str, max_keyframes: int = 10**9):
         for synced in self.ingest.synced_frames(replay_path):
@@ -352,10 +438,15 @@ class OdomNdtApp:
         # INS relative motion since the previous keyframe: the registration
         # seed. Like the reference (odom_ndt.py:603) it is not gated on the
         # GPS-denial trust or checked against the constant-velocity guess.
+        # Unknown after resuming a file without it: flag 0, the
+        # constant-velocity seed.
         cr = np.asarray(ins_pose.rot, np.float64)
         ct = np.asarray(ins_pose.trans, np.float64)
-        pr, pt = self._prev_ins
-        ins_rel = np.concatenate([[1.0], (pr.T @ cr).ravel(), pr.T @ (ct - pt)])
+        if self._prev_ins is None:
+            ins_rel = np.zeros(13)
+        else:
+            pr, pt = self._prev_ins
+            ins_rel = np.concatenate([[1.0], (pr.T @ cr).ravel(), pr.T @ (ct - pt)])
         self._prev_ins = (cr.copy(), ct.copy())
         flat = np.concatenate([
             cr.ravel(), ct, scaled_sigma, np.asarray(self._origin, np.float64),
@@ -368,7 +459,8 @@ class OdomNdtApp:
                 self.max_trans_deviation, self.max_rot_deviation, method=self.method,
                 inner_iters=reg.fused_inner_iters, window=self.window,
                 smoother_iters=self.smoother_iters, tgt_window=self.tgt_window,
-                tgt_exclude=self.tgt_exclude, timer=self.device_timer,
+                tgt_exclude=self.tgt_exclude, timer=self.device_timer, svn_cfg=self.svn_cfg,
+                init_noise=self._particle_noise(), scan_grid=self._scan_grid,
             )
         self._n_keyframes += 1
         self._pending.append((synced, scan.num_points, ins_pose, ins_sigma, scaled_sigma,
@@ -376,6 +468,13 @@ class OdomNdtApp:
         if len(self._pending) > 2:
             self._drain_one()
         self.process_end_s.append(time.perf_counter())
+
+    def _particle_noise(self):
+        """The keyframe's (K, 6) standard-normal particle draws (SVNNDT), or None."""
+        if self.generator is None:
+            return None
+        return torch.randn((self.svn_cfg.num_particles, 6), generator=self.generator,
+                           device=self.device)
 
     def flush(self):
         """Read back all in-flight keyframe results."""

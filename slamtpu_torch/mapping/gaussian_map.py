@@ -6,9 +6,10 @@ pass 1: pack voxel keys -> stable sort by key -> segment sums of n, sum(x)
 pass 2: mean, Bessel-corrected covariance, eigenvalue inflation at
         ``min_covar_eigvalue_mult * lambda_max``, inverse and validity gates.
 
-Segment sums go through ``index_add_``. On the GPU its atomics add in no
-fixed order, so a voxel's sums may differ by an ulp from run to run; the
-corner-relative coordinates keep that far below the covariance scale.
+Float segment sums go through ``segment_sum``, which adds each segment in
+a fixed order on either device, so a build repeats bit for bit and a
+resumed run can equal a continuous one: float64 prefix sums on the GPU
+(``segment_sum_scan``), float32 ``index_add_`` on the CPU.
 """
 from __future__ import annotations
 
@@ -54,25 +55,71 @@ class GaussianMap(NamedTuple):
         return torch.sum(self.valid.to(torch.int32)).to(torch.int32)
 
 
+def segment_sum(values: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Row sums of ``values`` (M, ...) by segment id ``seg`` (M,) int64,
+    sorted ascending, into ``num_segments`` rows, in an order that does not
+    change from run to run.
+
+    On the GPU ``index_add_``'s atomics add in no fixed order, so the card
+    takes ``segment_sum_scan``. The CPU keeps float32 ``index_add_``, which
+    adds in index order and so rounds as the reference's float32 segment
+    sums over the same sorted points do, bit for bit.
+    ``test_build_map_matches_reference`` needs that: it holds the map's
+    validity gate to the reference's exactly, and with the scan's float64
+    sums 3 coplanar voxels of its cloud flip the smallest-eigenvalue sign
+    test. ``test_build_map_with_scan_sums_matches_reference`` and
+    ``test_run_replay_with_scan_sums_matches_reference`` hold the card's
+    sums, run on the CPU, to the reference."""
+    if values.device.type == "cpu":
+        out = torch.zeros((num_segments,) + tuple(values.shape[1:]), dtype=values.dtype)
+        return out.index_add_(0, seg, values)
+    return segment_sum_scan(values, seg, num_segments)
+
+
+def segment_sum_scan(values: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``segment_sum`` by float64 prefix sums over the sorted ``seg`` (the
+    GPU's path; on any device): each segment is the difference of the
+    prefix sum at its two ends. A scan adds in a fixed order, and in
+    float64 the difference is off by ~1e-9 at most for the map's
+    corner-relative sums, below their float32 rounding."""
+    # one 1-D scan over the columns laid end to end, each led by a zero: the
+    # GPU scans a 1-D tensor with the whole device, where a scan along a
+    # dimension of a 2-D one runs a thread (or block) per column. Within a
+    # column the difference cancels the sums of the columns before it.
+    M = values.shape[0]
+    cols = torch.nn.functional.pad(values.reshape(M, -1).t().to(torch.float64), (1, 0))
+    prefix = torch.cumsum(cols.reshape(-1), 0).view(cols.shape)
+    ids = torch.arange(num_segments, dtype=seg.dtype, device=seg.device)
+    lo, hi = torch.searchsorted(seg, ids), torch.searchsorted(seg, ids, right=True)
+    sums = (prefix[:, hi] - prefix[:, lo]).t()
+    return sums.to(values.dtype).reshape((num_segments,) + tuple(values.shape[1:]))
+
+
+def _sorted_segments(keys: torch.Tensor, capacity: int):
+    """Stable sort by key; returns (order, sorted keys, segment-start flags,
+    segment ids). Invalid keys and voxels beyond ``capacity`` go to the
+    overflow segment ``capacity``."""
+    order = torch.argsort(keys, stable=True)
+    skeys = keys[order]
+    is_valid = skeys != voxel.INVALID_KEY
+    first = torch.cat([torch.ones_like(is_valid[:1]), skeys[1:] != skeys[:-1]]) & is_valid
+    seg = torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1
+    seg = torch.where(is_valid & (seg >= 0) & (seg < capacity), seg, capacity).long()
+    return order, skeys, first, seg
+
+
 def _segment_reduce(keys: torch.Tensor, points: torch.Tensor, capacity: int):
     """Stable sort by key and segment-sum the sufficient statistics of
     ``points`` (already voxel-corner-relative; a global cumsum difference
     would bring back the f32 cancellation the corner shift removes).
     Returns (slot_keys, n, sx, sxx, overflow) over ``capacity`` slots."""
-    order = torch.argsort(keys, stable=True)
-    skeys = keys[order]
+    order, skeys, first, seg = _sorted_segments(keys, capacity)
     spts = points[order]
-    is_valid = skeys != voxel.INVALID_KEY
-    first = torch.cat([torch.ones_like(is_valid[:1]), skeys[1:] != skeys[:-1]]) & is_valid
-    seg = torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1
-    # invalid points and voxels beyond capacity land in the overflow bucket
-    seg = torch.where(is_valid & (seg >= 0) & (seg < capacity), seg, capacity).long()
-    dev, dt = points.device, points.dtype
+    dev = points.device
     n = torch.zeros(capacity + 1, dtype=torch.int32, device=dev)
     n.index_add_(0, seg, torch.ones_like(seg, dtype=torch.int32))
-    sx = torch.zeros((capacity + 1, 3), dtype=dt, device=dev).index_add_(0, seg, spts)
-    outer = (spts[:, :, None] * spts[:, None, :]).reshape(-1, 9)
-    sxx = torch.zeros((capacity + 1, 9), dtype=dt, device=dev).index_add_(0, seg, outer)
+    sx = segment_sum(spts, seg, capacity + 1)
+    sxx = segment_sum((spts[:, :, None] * spts[:, None, :]).reshape(-1, 9), seg, capacity + 1)
     # every key of a kept segment is the same, so any write is its key
     slot_keys = torch.full(
         (capacity + 1,), int(np.iinfo(np.int32).min), dtype=torch.int32, device=dev
@@ -84,13 +131,10 @@ def _segment_reduce(keys: torch.Tensor, points: torch.Tensor, capacity: int):
     return slot_keys, n, sx, sxx.view(capacity, 3, 3), overflow
 
 
-def stats_from_points(points, mask, origin, resolution, capacity: int) -> VoxelStats:
-    """Per-voxel sufficient statistics of the masked, finite points (N, 3),
-    accumulated relative to each point's voxel corner (magnitudes below the
-    resolution): at origin-relative magnitudes of hundreds of meters the
-    float32 rounding of E[xx] would swamp the surface-normal variance."""
-    # a 0-dim CPU tensor: it enters device ops as a scalar, with no copy
-    resolution = torch.as_tensor(resolution, dtype=points.dtype)
+def _corner_keys(points, mask, origin, resolution):
+    """Each point's packed voxel key (``INVALID_KEY`` where masked or
+    non-finite) and its voxel-corner-relative coordinates (0 where
+    non-finite)."""
     finite = torch.all(torch.isfinite(points), dim=-1)
     rel = points - origin.to(points.dtype)[None, :]
     coords = voxel.floor_to_int32(rel * (1.0 / resolution))
@@ -98,6 +142,17 @@ def stats_from_points(points, mask, origin, resolution, capacity: int) -> VoxelS
     keys = torch.where(mask & finite, keys, voxel.INVALID_KEY)
     rel_v = rel - coords.to(points.dtype) * resolution
     rel_v = torch.where(finite[:, None], rel_v, 0.0)  # NaN/Inf must not poison sums
+    return keys, rel_v
+
+
+def stats_from_points(points, mask, origin, resolution, capacity: int) -> VoxelStats:
+    """Per-voxel sufficient statistics of the masked, finite points (N, 3),
+    accumulated relative to each point's voxel corner (magnitudes below the
+    resolution): at origin-relative magnitudes of hundreds of meters the
+    float32 rounding of E[xx] would swamp the surface-normal variance."""
+    # a 0-dim CPU tensor: it enters device ops as a scalar, with no copy
+    resolution = torch.as_tensor(resolution, dtype=points.dtype)
+    keys, rel_v = _corner_keys(points, mask, origin, resolution)
     slot_keys, n, sx, sxx, overflow = _segment_reduce(keys, rel_v, capacity)
     return VoxelStats(slot_keys, n, sx, sxx, origin, resolution, overflow)
 

@@ -1,7 +1,7 @@
 """The registration objective on RegMap rows and the Newton driver on top
 of it (port of slamtpu/ndt/pallas_math.py: ``gather_megaT``,
 ``fused_objective``, ``score_grad_hess_fused``, ``newton_align_fused`` and
-``gicp_align_fused``).
+``gicp_align_fused``; and of slamtpu/ndt/gicp.py's ``gicp_align_aniso``).
 
 Three pair kernels carry it, the three costs of one CUDA kernel template,
 each beside its plain PyTorch version:
@@ -12,8 +12,10 @@ each beside its plain PyTorch version:
   the trimmed isotropic VGICP cost against a ``gicp_map`` RegMap (the
   odom_ndt GICP engine's Newton);
 - ``aniso_pair`` (CUDA ``ndt_pair_kernel<kAniso>``, plain ``_aniso_pair_plain``):
-  plane-to-plane GICP against the aux table ``regmap.packed_aux`` and each
-  point's body-frame source covariance scovT (9, N) (the SVN polish).
+  plane-to-plane GICP against a table of means and plane-regularized
+  covariances and each point's body-frame source covariance scovT (9, N):
+  the aux table ``regmap.packed_aux`` (the SVN polish) or the table of a
+  ``gicp_map_aniso`` RegMap (odom_ndt's anisotropic GICP engine).
 
 Each takes a RegMap table (R, 96), whose last row is the all-zero
 sentinel, and each point's row index (N,) int32 (``regmap.grid_rows``),
@@ -367,8 +369,10 @@ def rows_objective(ptsT, table, rows, pose: Pose3, d1, d2, hess_lambda=1e-6, gic
     pose or K poses, point i against mega row ``table[rows[i]]``. In the
     VGICP cost the table is a ``gicp_map`` RegMap's, ``d2`` carries
     max_corr_dist^2 and d1 is unused. With ``src_covT`` ((9, N) body-frame
-    source covariances) it runs the plane-to-plane cost: the table is the
-    aux table (``regmap.packed_aux``) and ``d2`` carries max_corr_dist^2.
+    source covariances) it runs the plane-to-plane cost: the table holds
+    means and plane-regularized covariances (``regmap.packed_aux``, or
+    ``packed`` of a ``gicp_map_aniso`` RegMap) and ``d2`` carries
+    max_corr_dist^2.
     Fields come back batched like ``pose``."""
     params = pose_params(pose, d1, d2, gicp_max_mahal, gicp)
     if src_covT is not None:
@@ -407,6 +411,17 @@ def gicp_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: Newton
                               _gicp=True, _gicp_max_mahal=max_mahal)
 
 
+def gicp_align_aniso(points, mask, src_cov, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig,
+                     grid_shape: tuple) -> NewtonResult:
+    """Plane-to-plane GICP registration on the plane-to-plane pair kernel
+    (regmap from ``gicp_map_aniso`` + ``build_regmap``, src_cov (N, 3, 3)
+    body-frame source covariances), with the contract of the reference's
+    Newton loop: each step evaluated at its own pose, score and Hessian at
+    the returned pose."""
+    return newton_align_fused(points, mask, regmap, init_pose, cfg, grid_shape, inner_iters=1,
+                              final_eval=True, src_cov=src_cov)
+
+
 def _read_state(it, conv):
     """(iterations, converged) on the host: one device sync."""
     HOST_READS["newton"] += 1
@@ -416,9 +431,11 @@ def _read_state(it, conv):
 
 def newton_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig,
                        grid_shape: tuple, inner_iters: int = 1, reg_pose: Pose3 = None,
-                       final_eval: bool = False, _gicp: bool = False,
+                       final_eval: bool = False, src_cov=None, _gicp: bool = False,
                        _gicp_max_mahal: float = 9.0) -> NewtonResult:
-    """Newton registration on the fused kernel (NDT, or VGICP with _gicp).
+    """Newton registration on the fused kernel: NDT; VGICP with _gicp; or,
+    with ``src_cov`` ((N, 3, 3) body-frame source covariances), plane-to-plane
+    GICP on the table of a ``gicp_map_aniso`` RegMap.
 
     Each outer iteration looks up the points' rows once and takes up to
     ``inner_iters`` Newton steps on them. A staleness budget guards the
@@ -433,18 +450,19 @@ def newton_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: Newt
     last applied step, evaluated at the pose before its retract;
     ``final_eval=True`` evaluates them at the returned pose."""
     if cfg.kd_radius > 0.0:
-        raise NotImplementedError("the KDTREE search mode is not ported (ROADMAP A, item 11)")
+        raise NotImplementedError("the KDTREE search mode is not ported (ROADMAP A 2.4)")
     d1, d2, _ = gauss_constants(cfg.resolution, cfg.outlier_ratio)
-    if _gicp:
+    if _gicp or src_cov is not None:
         d2 = float(cfg.gicp_max_corr_dist) ** 2  # the d2 slot carries the distance gate
     f32 = torch.float32
     points, mask = sanitize_points(points, mask)
     ptsT = points.to(f32).t().contiguous()
     dev = ptsT.device
+    scovT = None if src_cov is None else src_cov.reshape(-1, 9).t().contiguous().to(f32)
 
     def evaluate(pose, rows):
         return rows_objective(ptsT, regmap.packed, rows, pose, d1, d2, cfg.hess_lambda,
-                              gicp=_gicp, gicp_max_mahal=_gicp_max_mahal)
+                              gicp=_gicp, gicp_max_mahal=_gicp_max_mahal, src_covT=scovT)
 
     def lookup(pose):
         return grid_rows(points, mask, pose, regmap, grid_shape)

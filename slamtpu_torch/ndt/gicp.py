@@ -1,7 +1,8 @@
-"""GICP pieces (port of the ``gicp_map``, ``regularize_plane_covariance``
-and ``stencil_point_covariances`` parts of slamtpu/ndt/gicp.py): the
-isotropic VGICP target map of odom_ndt's GICP engine, and the plane model
-and stencil source covariances of the lo_svn polish."""
+"""GICP pieces (port of the target maps and source covariances of
+slamtpu/ndt/gicp.py): the isotropic VGICP target map of odom_ndt's GICP
+engine; the plane model, the plane-to-plane target map and the stencil and
+voxel source covariances of odom_ndt's anisotropic GICP engine and the
+lo_svn polish. The objectives are the pair kernels' (``fused_math``)."""
 from __future__ import annotations
 
 import math
@@ -9,7 +10,8 @@ import math
 import torch
 
 from ..core import linalg
-from ..mapping.gaussian_map import GaussianMap
+from ..mapping import voxel
+from ..mapping.gaussian_map import GaussianMap, segment_sum
 
 
 def gicp_map(gmap: GaussianMap, source_noise_sigma: float = 0.05) -> GaussianMap:
@@ -69,6 +71,15 @@ def regularize_plane_covariance(cov: torch.Tensor, eps: float = 1e-3) -> torch.T
     return eye - (1.0 - eps) * nv[..., :, None] * nv[..., None, :]
 
 
+def gicp_map_aniso(gmap: GaussianMap, eps: float = 1e-3) -> GaussianMap:
+    """Target map of plane-to-plane GICP: the icov slot carries the
+    plane-regularized covariance (zero where the voxel is invalid), not an
+    inverse; the pair kernel adds the rotated source covariance and inverts
+    per pair."""
+    cov_r = regularize_plane_covariance(gmap.cov, eps)
+    return gmap._replace(icov=torch.where(gmap.valid[:, None, None], cov_r, 0.0))
+
+
 def stencil_point_covariances(
     points: torch.Tensor,  # (cols*sub, 3) row-major over the range image
     mask: torch.Tensor,  # (cols*sub,)
@@ -121,3 +132,63 @@ def stencil_point_covariances(
     good = (n >= min_neighbors) & V
     iso = (fallback_sigma ** 2) * torch.eye(3, dtype=dtype, device=points.device)
     return torch.where(good[..., None, None], cov, iso).reshape(N, 3, 3)
+
+
+def source_point_covariances(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    resolution,
+    capacity: int = 8192,
+    min_points_per_voxel: int = 4,
+    fallback_sigma: float = 0.05,
+    eps: float = 1e-3,
+) -> torch.Tensor:
+    """(N, 3, 3) source covariances: each point takes the plane-regularized
+    covariance of its own voxel of the source scan, or sigma^2 I where the
+    voxel holds fewer than ``min_points_per_voxel`` points (or lies past
+    ``capacity`` distinct voxels). Points are sorted by voxel key, summed
+    per segment and un-sorted. The sums are taken relative to each point's
+    voxel corner: relative to the scan's corner, float32 outer products at
+    a ~300 m scan diameter would swamp the surface covariance."""
+    dtype, dev = points.dtype, points.device
+    finite = torch.all(torch.isfinite(points), dim=-1)
+    mask = mask & finite
+    masked = torch.where(mask[:, None], points, 1e6)
+    origin = (torch.floor(torch.amin(masked, dim=0) / resolution) - 1.0) * resolution
+    rel = points - origin[None, :]
+    coords = voxel.floor_to_int32(rel * (1.0 / resolution))
+    keys = torch.where(mask, voxel.pack(coords), voxel.INVALID_KEY)
+    pts_rel = torch.where(finite[:, None], rel - coords.to(dtype) * resolution, 0.0)
+
+    order = torch.argsort(keys, stable=True)
+    skeys, spts = keys[order], pts_rel[order]
+    is_valid = skeys != voxel.INVALID_KEY
+    first = torch.cat([torch.ones_like(is_valid[:1]), skeys[1:] != skeys[:-1]]) & is_valid
+    seg = torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1
+    seg_ok = is_valid & (seg >= 0) & (seg < capacity)
+    seg = torch.where(seg_ok, seg, capacity).long()
+    n = segment_sum(seg_ok.to(dtype), seg, capacity + 1)
+    sx = segment_sum(torch.where(seg_ok[:, None], spts, 0.0), seg, capacity + 1)
+    outer = torch.where(seg_ok[:, None, None], spts[:, :, None] * spts[:, None, :], 0.0)
+    sxx = segment_sum(outer.reshape(-1, 9), seg, capacity + 1).view(-1, 3, 3)
+    nf = torch.clamp(n, min=1.0)
+    mu = sx / nf[:, None]
+    cov_v = sxx / nf[:, None, None] - mu[:, :, None] * mu[:, None, :]
+    cov_v = cov_v * (nf / torch.clamp(nf - 1.0, min=1.0))[:, None, None]
+    cov_v = regularize_plane_covariance(cov_v, eps)
+    good_sorted = seg_ok & (n >= min_points_per_voxel)[seg]
+    iso = (fallback_sigma ** 2) * torch.eye(3, dtype=dtype, device=dev)
+    cov_sorted = torch.where(good_sorted[:, None, None], cov_v[seg], iso)
+    cov = torch.empty_like(cov_sorted)
+    cov[order] = cov_sorted  # un-sort
+    return cov
+
+
+def sweep_point_covariances(points, mask, scan_grid, resolution, capacity: int, min_points: int):
+    """The source covariances of a sweep (RegisterConfig.svn_src_cov): the
+    range-image stencil ones when ``scan_grid`` (cols, sub) gives the
+    sweep's layout, else the voxel ones (at most 2^14 source voxels)."""
+    if scan_grid is not None:
+        return stencil_point_covariances(points, mask, scan_grid)
+    return source_point_covariances(points, mask, resolution, capacity=min(capacity, 1 << 14),
+                                    min_points_per_voxel=min_points)

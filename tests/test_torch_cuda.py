@@ -16,11 +16,18 @@ and the wrappers' input checks. Tolerances are
 chip_smoke.py's (``compare``): float32 sums of the same pair terms in
 another order.
 
-The last tests hold ligo_tc's float64 preintegration and 15-dof window
-smoother (both solvers) on the card against the same calls on the CPU:
-within 1e-10 (the same float64 formulas; the factorizations and matrix
-products of another library), the marginal covariance within 1e-8 of the
-largest entry of H^-1.
+Then ligo_tc's float64 preintegration and 15-dof window smoother (both
+solvers) on the card against the same calls on the CPU: within 1e-10 (the
+same float64 formulas; the factorizations and matrix products of another
+library), the marginal covariance within 1e-8 of the largest entry of
+H^-1.
+
+The last tests hold what checkpoints and the odom engines need on the
+card: the map build's segment sums repeat bit for bit (a resumed run
+equals a continuous one), a generator state saved on the card restores
+there, and the plane-to-plane engine (B3 on a ``gicp_map_aniso`` table
+through ``gicp_align_aniso``) and the multi-resolution engine (B1 at two
+levels) register as on the CPU (pose within 1e-4 m / 1e-4 rad).
 """
 import numpy as np
 import pytest
@@ -29,8 +36,12 @@ import torch
 from chip_smoke import compare
 from slamtpu_torch.core import se3
 from slamtpu_torch.fusion import graph, preintegration, smoother
-from slamtpu_torch.ndt import fused_math
+from slamtpu_torch.mapping import gaussian_map
+from slamtpu_torch.ndt import fused_math, gicp, multires
 from slamtpu_torch.ndt.constants import gauss_constants
+from slamtpu_torch.ndt.newton import NewtonConfig
+from slamtpu_torch.ndt.regmap import build_regmap
+from slamtpu_torch.runtime import checkpoint
 
 pytestmark = pytest.mark.cuda
 
@@ -314,3 +325,99 @@ def test_window_smoother_on_the_card_matches_the_cpu(dev, solver):
         cov = smoother.marginal_covariance(out.hessian, idx).cpu().numpy()
         cov_ref = smoother.marginal_covariance(ref.hessian, idx).numpy()
         np.testing.assert_allclose(cov, cov_ref, rtol=1e-8, atol=1e-8 * inv_max)
+
+
+def test_segment_sums_repeat_bit_for_bit(dev):
+    """Many points a segment, in one float32 sum each: two runs on the card
+    are equal, and they agree with float64 sums on the CPU."""
+    g = torch.Generator().manual_seed(3)
+    vals = torch.randn((200_000, 9), generator=g)
+    seg = torch.sort(torch.randint(0, 300, (200_000,), generator=g)).values  # sorted, as the callers'
+    a = gaussian_map.segment_sum(vals.to(dev), seg.to(dev), 301)
+    assert torch.equal(a, gaussian_map.segment_sum(vals.to(dev), seg.to(dev), 301))
+    ref = torch.zeros((301, 9), dtype=torch.float64).index_add_(0, seg, vals.double())
+    np.testing.assert_allclose(a.cpu().double().numpy(), ref.numpy(), rtol=0, atol=1e-3)
+
+
+def test_generator_state_round_trip_on_the_card(dev, tmp_path):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    torch.randn(7, generator=gen, device=dev)
+    path = str(tmp_path / "gen.npz")
+    np.savez(path, **checkpoint._generator_arrays(gen))
+    want = torch.randn(20, 6, generator=gen, device=dev)
+    other = torch.Generator(device=dev)
+    checkpoint._restore_generator(dict(np.load(path)), other, "test")
+    assert torch.equal(torch.randn(20, 6, generator=other, device=dev), want)
+    with pytest.raises(ValueError):
+        checkpoint._restore_generator(dict(np.load(path)), torch.Generator(), "test")
+
+
+def _box_scene(device):
+    """Three noisy perpendicular planes as the target, a sparser copy as the
+    source, and a start pose offset from the truth (identity)."""
+    rng = np.random.default_rng(21)
+
+    def box(pitch, sigma):
+        ax = np.arange(0.0, 6.0, pitch)
+        g1, g2 = [a.ravel() for a in np.meshgrid(ax, ax, indexing="ij")]
+        z = np.zeros_like(g1)
+        pts = np.concatenate([np.stack(p, 1) for p in ((g1, g2, z), (g1, z, g2), (z, g1, g2))])
+        return (pts + rng.normal(scale=sigma, size=pts.shape)).astype(np.float32)
+
+    target, src = box(0.15, 0.02), box(0.25, 0.01)
+    T = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    init = se3.expmap(torch.tensor([0.01, -0.02, 0.03, 0.15, -0.1, 0.08], device=device))
+    return T(target), T(src), torch.ones(len(src), dtype=torch.bool, device=device), init
+
+
+def _to(regmap, device):
+    return type(regmap)(*(a if a is None or k == "resolution" else a.to(device)
+                          for k, a in zip(regmap._fields, regmap)))
+
+
+def _odom_engine(engine, device, grid, max_iterations, trans_eps):
+    """(result, launches) of one registration of the box scene on
+    ``device``. The maps and the source covariances are built on the CPU
+    and moved: at the box's edges a voxel's two minor eigenvalues tie, so
+    its plane normal is set by rounding, which another device's sums
+    change."""
+    target, src, mask, init = _box_scene("cpu")
+    origin = torch.floor(target.amin(0)) - 8.0
+    tmask = torch.ones(len(target), dtype=torch.bool)
+    if engine == "gicp_aniso":
+        gmap = gaussian_map.build_map(target, tmask, origin, 1.0, capacity=2048, min_points_per_voxel=4)
+        regmap = _to(build_regmap(gicp.gicp_map_aniso(gmap), grid_shape=grid), device)
+        scov = gicp.source_point_covariances(src, mask, 1.0, capacity=1024).to(device)
+    else:
+        levels = [lv._replace(regmap=_to(lv.regmap, device)) for lv in multires.build_pyramid(
+            target, tmask, origin, [2.0, 1.0], 2048, grid, 4, [max_iterations // 3, max_iterations])]
+    src, mask, init = src.to(device), mask.to(device), se3.Pose3(init.rot.to(device), init.trans.to(device))
+    before = dict(fused_math.LAUNCHES)
+    if engine == "gicp_aniso":
+        cfg = NewtonConfig(resolution=1.0, max_iterations=max_iterations, trans_eps=trans_eps)
+        res = fused_math.gicp_align_aniso(src, mask, scov, regmap, init, cfg, grid)
+    else:
+        res = multires.multires_align(src, mask, levels, init)
+    return res, {k: v - before[k] for k, v in fused_math.LAUNCHES.items()}
+
+
+@pytest.mark.parametrize("engine", ["gicp_aniso", "multires"])
+def test_odom_engines_on_the_card_match_the_cpu(dev, engine):
+    """The engine on the card against the same calls on the CPU, from the
+    same maps. The plane-to-plane engine is held over its first three
+    steps: its trimmed cost gains and loses pairs as the pose moves, so on
+    this toy scene float32 sums in another order may take another path
+    through its last steps; the whole run then converges on the card."""
+    grid = (64, 64, 32)
+    kernel = "aniso_pair" if engine == "gicp_aniso" else "ndt_pair"
+    steps = (3, 0.0) if engine == "gicp_aniso" else (30, 1e-4)
+    out, launches = _odom_engine(engine, dev, grid, *steps)
+    ref, cpu_launches = _odom_engine(engine, "cpu", grid, *steps)
+    assert cpu_launches[kernel] == 0 and launches[kernel] >= int(out.iterations) > 0
+    assert abs(int(out.iterations) - int(ref.iterations)) <= 1 and bool(out.converged) == bool(ref.converged)
+    np.testing.assert_allclose(out.pose.trans.cpu().numpy(), ref.pose.trans.numpy(), rtol=0, atol=1e-4)
+    dR = ref.pose.rot.double().numpy().T @ out.pose.rot.cpu().double().numpy()
+    assert np.linalg.norm([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0], dR[1, 0] - dR[0, 1]]) / 2 < 1e-4
+    full, _ = _odom_engine(engine, dev, grid, 30, 1e-4)
+    assert bool(full.converged) and float(torch.linalg.vector_norm(full.pose.trans)) < 0.02

@@ -20,7 +20,7 @@ pair kernel's plain version with ``fused_inner_iters=1`` (and
     within 5e-4 m of each other, iterations within 1, every statistic and
     covariance finite. The port's app as it ships (the reference's fused
     contract): ATE within 5e-4 m of the reference's.
-(c) What the port does not carry yet raises.
+(c) What the port does not carry raises.
 """
 import functools
 
@@ -188,14 +188,6 @@ def test_unported_options_raise(change):
     _, tcfg = configs(1, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tligo.LigoTcApp(tcfg, "cpu")
-
-
-def test_checkpoints_raise(tmp_path):
-    _, tcfg = configs(1)
-    app = tligo.LigoTcApp(tcfg, "cpu")
-    for fn in (app.save_checkpoint, app.resume_from):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(str(tmp_path / "ckpt"))
 
 
 def test_no_cpu_fallback_without_a_card():

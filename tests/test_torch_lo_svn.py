@@ -6,7 +6,8 @@
 (b) ``LoSvnApp.run_replay`` of both packages on a 5-sweep skewed replay
     with deskew and the default polish; the published pose does not depend
     on the draws (the polish starts at the prior), so the two apps draw
-    independently.
+    independently. Also with the polish's voxel source covariances
+    (``svn_src_cov="voxel"``, the sort-based ``source_point_covariances``).
 
 Tolerances: rotation 1e-4 rad, iteration counts equal, covariance
 diagonal rtol 1e-2 (sample covariance of a few particles), and published
@@ -165,3 +166,21 @@ def test_run_replay_matches_reference(replay):
     recs = tapp.stats.records
     assert len(recs) == len(tt) and all(np.isfinite(r.lidar_sigma).all() for r in recs)
     assert set(tapp.device_timer.summary()) >= {"project", "deskew", "map_rebuild", "svn", "ring_insert"}
+
+
+def test_run_replay_voxel_source_covariances_matches_reference(replay):
+    """The polish with the sort-based voxel source covariances instead of
+    the range-image stencil."""
+    import dataclasses
+
+    path, gt, jcfg, tcfg = replay
+    jcfg, tcfg = (dataclasses.replace(c, register=dataclasses.replace(c.register, svn_src_cov="voxel"))
+                  for c in (jcfg, tcfg))
+    jt = JApp(jcfg).run_replay(path)
+    tapp = tlo.LoSvnApp(tcfg, "cpu")
+    assert tapp._scan_grid is None
+    tt = tapp.run_replay(path)
+    assert len(tt) == len(jt) == N_SWEEPS - 1
+    for a, b in zip(jt, tt):
+        _assert_pose_close(b.pose.rot, b.pose.trans, a.pose.rot, a.pose.trans)
+    assert "src_covariances" in tapp.device_timer.summary()

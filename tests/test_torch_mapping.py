@@ -86,3 +86,50 @@ def test_capacity_overflow_and_recenter():
         o_j, s_j = jgm.recenter_origin(jnp.asarray(np.float32([-512.0] * 3)), np.asarray(pos), 1.0)
         assert s_t == s_j
         np.testing.assert_array_equal(np.asarray(o_t), np.asarray(o_j))
+
+
+def test_segment_sum_scan_matches_index_add():
+    """The GPU's segment sums (float64 prefix sums over the sorted segment
+    ids), run here on the CPU: empty segments, one point a segment and a
+    long run (the overflow bucket) against ``index_add_`` in float64."""
+    seg = torch.as_tensor(np.sort(np.concatenate([RNG.integers(0, 40, 3000), np.full(20000, 60)])))
+    vals = torch.as_tensor(RNG.normal(size=(len(seg), 3, 3)).astype(np.float32))
+    out = gaussian_map.segment_sum_scan(vals, seg, 61)
+    ref = torch.zeros((61, 3, 3), dtype=torch.float64).index_add_(0, seg, vals.double())
+    assert out.dtype == torch.float32 and out.shape == (61, 3, 3)
+    assert not out[40:60].any()
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-6, atol=1e-5)
+
+
+def test_build_map_with_scan_sums_matches_reference(monkeypatch):
+    """The map build through the GPU's segment sums, on the CPU, against the
+    reference at the tolerances of test_build_map_matches_reference. The
+    validity gate's sign test on the smallest eigenvalue is decided by
+    rounding where that eigenvalue is ~1e-8 (coplanar points): there alone
+    the two builds may disagree."""
+    monkeypatch.setattr(gaussian_map, "segment_sum", gaussian_map.segment_sum_scan)
+    pts = cloud()
+    mask = np.ones(len(pts), bool)
+    mask[100:120] = False
+    origin = np.float32([290.0, -240.0, -5.0])
+    j = jgm.build_map(jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(origin), RES,
+                      capacity=1024, min_points_per_voxel=4)
+    t = gaussian_map.build_map(torch.as_tensor(pts), torch.as_tensor(mask), torch.as_tensor(origin),
+                               RES, capacity=1024, min_points_per_voxel=4)
+    np.testing.assert_array_equal(t.keys.numpy(), np.asarray(j.keys))
+    np.testing.assert_array_equal(t.count.numpy(), np.asarray(j.count))
+    stats = gaussian_map.stats_from_points(torch.as_tensor(pts), torch.as_tensor(mask),
+                                           torch.as_tensor(origin), RES, 1024)
+    n = stats.n.clamp(min=2).double()
+    mu = stats.sx.double() / n[:, None]
+    raw = torch.linalg.eigvalsh(stats.sxx.double() / n[:, None, None] - mu[:, :, None] * mu[:, None, :])
+    degenerate = (raw[:, 0].abs() <= 1e-6 * raw[:, 2].abs()).numpy()
+    flips = t.valid.numpy() != np.asarray(j.valid)
+    assert not (flips & ~degenerate).any() and flips.sum() <= 5
+    v = t.valid.numpy() & np.asarray(j.valid)
+    assert v.sum() > 100
+    np.testing.assert_allclose(t.mean.numpy()[v], np.asarray(j.mean)[v], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(t.cov.numpy()[v], np.asarray(j.cov)[v], rtol=0, atol=1e-6)
+    jic = np.asarray(j.icov)[v]
+    scale = np.abs(jic).reshape(-1, 9).max(1)[:, None, None]
+    np.testing.assert_allclose(t.icov.numpy()[v] / scale, jic / scale, atol=1e-4)
