@@ -53,6 +53,23 @@
    ``resume_from`` it in a new app on the card and run the rest; the
    combined trajectory must equal the phase's continuous run above within
    1e-4 m and 1e-4 rad.
+8. KDTREE search mode: the kernel phase also holds the gated NDT pair
+   kernel (K = 20 and K = 1) and the gated VGICP pair kernel (K = 1)
+   against their plain versions on ``build_regmap_kdtree`` maps of the same
+   sweep, gate at the points' true pose with radius = resolution, and
+   prints the slots the gate cut and the gate decisions near the radius
+   (where kernel and plain may round apart); replay phases run lo_svn with
+   ``svn_search_method="KDTREE"`` and odom NDT_OMP and isotropic GICP with
+   ``search_method="KDTREE"`` (ATE < 10 mm, GICP < 50 mm).
+9. ins_map phase: ``InsMapApp(cfg, "cuda")`` at the Berlin config's
+   ``map_voxel_size`` (0.5) and ``map_capacity`` (2^17) over the replay;
+   prints keyframes/s, per-stage device ms, valid voxels, overflow and
+   out-of-range points; checks that a split run (``save_checkpoint`` ->
+   ``resume_from`` in a new app) equals the continuous one bit for bit,
+   that the merged statistics of a prefix of sweeps equal one
+   ``stats_from_points`` over the same INS-posed sweeps (keys and counts
+   exact, sums rtol 1e-5), and that ``finalize_and_export`` writes its
+   files.
 Each replay phase prints the ATE, steady-state keyframes/s, iteration
 counts, host syncs per keyframe, per-stage device times and peak memory.
 The kernel phase also holds the NDT pair kernel at K = 1 against a
@@ -99,6 +116,10 @@ ODOM_PHASES = {  # label: (method, register changes, kernel, ATE bound)
                               svn_kernel_h=5.0, svn_step_size=1.0, svn_polish_iters=4),
                "ndt_pair", 0.010),
     "NDT_OMP_MULTIRES": ("NDT_OMP_MULTIRES", {}, "ndt_pair", 0.010),
+    # the KDTREE search mode (set before its first card run): NDT_OMP 10 mm,
+    # isotropic GICP as its DIRECT7 engine
+    "NDT_OMP KDTREE": ("NDT_OMP", dict(search_method="KDTREE"), "ndt_pair_gated", 0.010),
+    "GICP KDTREE": ("GICP", dict(search_method="KDTREE"), "gicp_pair_gated", 0.050),
 }
 # ATE bound of the ligo phases. The reference's ATE on this 12-sweep replay
 # is not measured (its 30-sweep figures are of another accelerator). On an
@@ -112,6 +133,11 @@ LIGO_ATE_BOUND = 0.010
 # parity semantics (rebuild every keyframe).
 RESUME_AFTER = {"lo_svn": 5, "odom NDT_OMP": 6, "ligo parity": 6}
 RESUME_TOL_M, RESUME_TOL_RAD = 1e-4, 1e-4
+# lo_svn in the KDTREE search mode (set before its first card run)
+LO_SVN_KDTREE_ATE_BOUND = 0.010
+# ins_map: keyframes merged before the checkpoint, and the prefix of sweeps
+# whose merged statistics are held to one stats_from_points
+INS_MAP_SPLIT, INS_MAP_PREFIX = 6, 3
 TIMED_ROUNDS, TIMED_LAUNCHES = 10, 20
 SPIN_CYCLES_PER_S = 2.0e9  # at least the H100's top SM clock (1.98 GHz)
 # kernel vs plain on the same inputs. The pair count may differ by a few in
@@ -243,7 +269,7 @@ def kernel_inputs(torch, replay_path, gt, cfg, dev):
     from slamtpu_torch.ndt.constants import gauss_constants
     from slamtpu_torch.ndt.gicp import (gicp_map, gicp_map_aniso, regularize_plane_covariance,
                                         stencil_point_covariances)
-    from slamtpu_torch.ndt.regmap import build_regmap, grid_rows
+    from slamtpu_torch.ndt.regmap import build_regmap, build_regmap_kdtree, grid_rows
     from slamtpu_torch.ndt.svn import INIT_SIGMAS
 
     ing = IngestPipeline(cfg, dev)
@@ -268,6 +294,10 @@ def kernel_inputs(torch, replay_path, gt, cfg, dev):
     aux = torch.cat([gmap.mean, regularize_plane_covariance(gmap.cov).reshape(-1, 9)], dim=1)
     regmap = build_regmap(gmap, grid_shape=GRID, aux_payload=aux)
     regmap_g = build_regmap(gicp_map(gmap, 0.05), grid_shape=GRID)
+    # the KDTREE search mode's maps of the same sweep (6V rows), for the
+    # gated NDT and VGICP kernels
+    regmap_k = build_regmap_kdtree(gmap, grid_shape=GRID)
+    regmap_kg = build_regmap_kdtree(gicp_map(gmap, 0.05), grid_shape=GRID)
     # the odom_ndt operating point's map: capacity 2^15 on its grid, and its
     # plane-to-plane twin (the anisotropic GICP engine's target)
     gmap_o = build_map(world_a, scan_a.mask, origin, res, capacity=1 << 15, min_points_per_voxel=4)
@@ -299,6 +329,11 @@ def kernel_inputs(torch, replay_path, gt, cfg, dev):
         rows_g=grid_rows(pts, mask, pose_b, regmap_g, GRID),
         rows_o=grid_rows(pts, mask, pose_b, regmap_o, ODOM_GRID),
         rows_oa=grid_rows(pts, mask, pose_b, regmap_oa, ODOM_GRID),
+        regmap_k=regmap_k, regmap_kg=regmap_kg,
+        rows_k=grid_rows(pts, mask, pose_b, regmap_k, GRID),
+        rows_kg=grid_rows(pts, mask, pose_b, regmap_kg, GRID),
+        # rows looked up, and gated, at the points' true pose, radius = resolution
+        gate=fused_math.gate_params(pose_b, res),
         megaT=fused_math.gather_megaT(pts, mask, pose_b, regmap, GRID),
         megaT_g=fused_math.gather_megaT(pts, mask, pose_b, regmap_g, GRID),
         megaT_aux=fused_math.gather_megaT(pts, mask, pose_b, regmap, GRID, table="aux"),
@@ -330,18 +365,64 @@ def kernel_inputs(torch, replay_path, gt, cfg, dev):
 # count need no work, so the count follows this run's data.
 FLOPS_POINT = {"ndt_pair": 101, "gicp_pair": 101, "aniso_pair": 191}
 FLOPS_PAIR = {"ndt_pair": 56, "gicp_pair": 55, "aniso_pair": 91}
-COSTS = {"ndt_pair": 0, "gicp_pair": 1, "aniso_pair": 2}  # the kernel template's cost
+# the KDTREE gate, once per point and tile whatever K: the gather-pose
+# transform (18) per point with a valid slot, the distance test (9) per
+# valid slot before the gate; the pair math then runs on the kept slots
+FLOPS_GATE_POINT, FLOPS_GATE_PAIR = 18, 9
+COSTS = {"ndt_pair": 0, "gicp_pair": 1, "aniso_pair": 2, "ndt_pair_gated": 3,
+         "gicp_pair_gated": 4}  # ndt_pair_blocks_per_sm's cost codes
+# a gate decision within this fraction of r^2 of the radius may round apart
+# in the kernel (fused multiply-adds) and the plain version (matrix product):
+# at 150 m a coordinate carries ~1e-5 m of float32 rounding
+GATE_NEAR = 1e-4
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_S = 67e12  # H100 SXM fp32 outside the tensor cores
 
 
-def pair_flops(name, K, mega):
+def pair_flops(name, K, mega, kept=None):
     """(operations, valid pairs, points with a valid slot) of one call of a
-    pair kernel for K poses over the points' mega rows (N, 96)."""
+    pair kernel for K poses over the points' mega rows (N, 96); for a gated
+    kernel, ``kept`` (N, 7) are the slots its gate keeps."""
     valid = mega[:, 84:91] > 0.5
-    pairs, active = int(valid.sum()), int(valid.any(1).sum())
-    flops = K * (active * FLOPS_POINT[name] + pairs * FLOPS_PAIR[name])
+    if kept is None:
+        pairs, active = int(valid.sum()), int(valid.any(1).sum())
+        return K * (active * FLOPS_POINT[name] + pairs * FLOPS_PAIR[name]), pairs, active
+    base = name.removesuffix("_gated")
+    pairs, active = int(kept.sum()), int(kept.any(1).sum())
+    flops = (K * (active * FLOPS_POINT[base] + pairs * FLOPS_PAIR[base])
+             + int(valid.any(1).sum()) * FLOPS_GATE_POINT + int(valid.sum()) * FLOPS_GATE_PAIR)
     return flops, pairs, active
+
+
+def gate_check(torch, fused_math, ptsT, table, rows, gate, limit=4000):
+    """The gate's decisions: (slots it keeps (N, 7) in the plain version,
+    slots it cut, decisions within GATE_NEAR of the radius, how many of
+    those the kernel decides otherwise). Each near decision is taken by the
+    gated VGICP kernel alone on its point and that one slot, with no
+    distance or Mahalanobis trim: its count is the kernel's decision (at
+    most ``limit`` of them)."""
+    from slamtpu_torch.core.se3 import Pose3
+
+    mega = fused_math._table_rows(table, rows)
+    mu, _, valid = fused_math._unpack_rows(mega)
+    x = ptsT.t()
+    kept = fused_math._gate_valid(valid, gate, x, mu)
+    q = x @ gate[:9].view(3, 3).t() + gate[9:12]
+    d2 = torch.sum((q[:, None, :] - mu) ** 2, dim=-1)
+    near = (valid & ((d2 - gate[12]).abs() <= GATE_NEAR * gate[12])).nonzero().tolist()
+    dev = ptsT.device
+    eye = Pose3(torch.eye(3, device=dev)[None], torch.zeros((1, 3), device=dev))
+    params = fused_math.pose_params(eye, 0.0, float("inf"), float("inf"), gicp=True)
+    zero_row = torch.zeros(1, dtype=torch.int32, device=dev)
+    disagree = 0
+    for i, s in near[:limit]:
+        row = mega[i].clone()
+        row[84:91] = 0.0
+        row[84 + s] = 1.0
+        tab = torch.stack([row, torch.zeros_like(row)])
+        out = fused_math.gicp_pair(params, ptsT[:, i:i + 1].contiguous(), tab, zero_row, gate)
+        disagree += int(out[0, 43].item()) != int(kept[i, s].item())
+    return kept, int(valid.sum() - kept.sum()), len(near), disagree
 
 
 def kernel_phase(torch, replay_path, gt, cfg, dev, card):
@@ -359,6 +440,8 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
     packed_oa, rows_oa = inp["regmap_oa"].packed, inp["rows_oa"]
     rows, rows_g, rows_o, rows_l = inp["rows"], inp["rows_g"], inp["rows_o"], inp["rows_l"]
     ptsT_l, p_ndt1_l = inp["ptsT_l"], inp["p_ndt1_l"]
+    packed_k, rows_k, gate = inp["regmap_k"].packed, inp["rows_k"], inp["gate"]
+    packed_kg, rows_kg = inp["regmap_kg"].packed, inp["rows_kg"]
 
     def aniso(p, ptsT_, tab, r):
         return fused_math.aniso_pair(p, ptsT_, tab, r, scovT)
@@ -378,6 +461,7 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
             for name, cost in COSTS.items() for k in (K, 1)))
 
     b1 = "slamtpu/ndt/pallas_math.py:37 (_kernel, gicp=False; pallas_call :371)"
+    kd = " with the KDTREE gate of gather_megaT (:294-317)"
     b3 = "slamtpu/ndt/pallas_math.py:185 (_kernel_aniso; pallas_call :355)"
     cases = [  # name, label, K, kernel, plain, (table, rows) it gathers from, TPU source
         ("ndt_pair", "K=20", K, lambda: fused_math.ndt_pair(inp["p_ndt"], ptsT, packed, rows),
@@ -406,7 +490,30 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
         ("aniso_pair", "K=1, odom aniso map", 1, lambda: aniso(inp["p_aniso"], ptsT, packed_oa, rows_oa),
          lambda: fused_math._aniso_pair_plain(inp["p_aniso"], ptsT, packed_oa, rows_oa, scovT),
          (packed_oa, rows_oa), b3),
+        # the KDTREE search mode: gather (and gate) at the true pose, K = 20
+        # particles around it (SVN stage 1) or K = 1 (Newton, the polish)
+        ("ndt_pair_gated", "K=20", K,
+         lambda: fused_math.ndt_pair(inp["p_ndt"], ptsT, packed_k, rows_k, gate),
+         lambda: fused_math._ndt_pair_plain(inp["p_ndt"], ptsT, packed_k, rows_k, gate),
+         (packed_k, rows_k), b1 + kd),
+        ("ndt_pair_gated", "K=1", 1,
+         lambda: fused_math.ndt_pair(inp["p_ndt1"], ptsT, packed_k, rows_k, gate),
+         lambda: fused_math._ndt_pair_plain(inp["p_ndt1"], ptsT, packed_k, rows_k, gate),
+         (packed_k, rows_k), b1 + kd),
+        ("gicp_pair_gated", "K=1", 1,
+         lambda: fused_math.gicp_pair(inp["p_gicp"], ptsT, packed_kg, rows_kg, gate),
+         lambda: fused_math._gicp_pair_plain(inp["p_gicp"], ptsT, packed_kg, rows_kg, gate),
+         (packed_kg, rows_kg),
+         "slamtpu/ndt/pallas_math.py:37 (_kernel, gicp=True, :96-103; pallas_call :371)" + kd),
     ]
+    # the gated kernels with an infinite radius are the ungated ones, bit for bit
+    wide = gate.clone()
+    wide[12] = float("inf")
+    for fn, p, tab, r in ((fused_math.ndt_pair, inp["p_ndt"], packed_k, rows_k),
+                          (fused_math.gicp_pair, inp["p_gicp"], packed_kg, rows_kg)):
+        assert torch.equal(fn(p, ptsT, tab, r, wide), fn(p, ptsT, tab, r)), fn
+    log("gated kernels with an infinite radius == ungated kernels, bit for bit (ndt_pair K=20, "
+        "gicp_pair K=1, KDTREE maps)")
     measured = []
     for name, label, k, kern, plain, gathered, replaces in cases:
         out = kern()
@@ -424,18 +531,26 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
         mega = fused_math._table_rows(*gathered)
         uniq = int(torch.unique(gathered[1]).numel())
         nbytes = uniq * 91 * 4 + N * (12 + 4 + (36 if name == "aniso_pair" else 0)) + k * (64 + 176)
-        flops, pairs, active = pair_flops(name, k, mega)
+        kept, gate_note = None, ""
+        if name.endswith("_gated"):
+            nbytes += 64  # the gate block
+            kept, cut, near, disagree = gate_check(torch, fused_math, ptsT, *gathered, gate)
+            gate_note = (f"; gate: {cut} slots cut of {int((mega[:, 84:91] > 0.5).sum())}, {near} "
+                         f"decisions within {GATE_NEAR:g} r^2 of the radius, {disagree} of them "
+                         "decided otherwise by the kernel")
+        flops, pairs, active = pair_flops(name, k, mega, kept)
         t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
         bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         log(f"[{card}] {name} {label}: N={N} max_abs_err={max_err:.6g} (score {float(ref[0, 0]):.7g}, "
             f"count {int(ref[0, 43])}) kernel {ms:.4f} ms ({spread[0]}), plain {plain_ms:.4f} ms "
             f"({spread[1]}); bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
             f"{flops / 1e9:.4f} GFLOP: {active} points with a valid slot, {pairs} pairs; unique rows "
-            f"{uniq}); {100 * bound_ms / ms:.1f}% of bound")
+            f"{uniq}); {100 * bound_ms / ms:.1f}% of bound{gate_note}")
         measured.append(dict(
             name=name, label=label, K=k, N=N, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms, unique_rows=uniq,
-            replaces=replaces,
+            replaces=replaces, **({"gate_cut": cut, "gate_near": near, "gate_disagree": disagree}
+                                  if kept is not None else {}),
         ))
     # the torch gathers the in-kernel one replaces, the row lookup that
     # stays, and one polish evaluation (lookup + plane-to-plane kernel)
@@ -469,10 +584,12 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
         if any(e["name"] == m["name"] for e in entries):
             continue
         e = {k: m[k] for k in ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                               "share_of_bound", "unique_rows", "K", "N", "replaces")}
+                               "share_of_bound", "unique_rows", "K", "N", "replaces", "gate_cut",
+                               "gate_near", "gate_disagree") if k in m}
         e.update(route="cuda", source="slamtpu_torch/csrc/ndt_pair.cu", launches=0, library_ms=None)
         e["cases"] = [{k: x[k] for k in ("label", "K", "ms", "plain_ms", "bound_ms", "bound_by",
-                                         "share_of_bound", "unique_rows", "max_abs_err")}
+                                         "share_of_bound", "unique_rows", "max_abs_err", "gate_cut",
+                                         "gate_near", "gate_disagree") if k in x}
                       for x in measured if x["name"] == m["name"] and x is not m]
         if m["name"] == "ndt_pair":
             e["gather_megaT_ms"], e["grid_rows_ms"] = gather_ms, index_ms
@@ -598,7 +715,94 @@ def resume_phase(torch, label, make_app, replay_path, split, continuous, card):
     return launches
 
 
+def ins_map_phase(torch, replay_path, cfg, dev, card):
+    """``InsMapApp(cfg, "cuda").run_replay`` with its rate, stages and map;
+    a split run against the continuous one (bit for bit); the merged
+    statistics of a prefix against one ``stats_from_points``; the export
+    files."""
+    from slamtpu_torch.apps.common import pose_to_device
+    from slamtpu_torch.apps.ins_map import InsMapApp
+    from slamtpu_torch.core import se3
+    from slamtpu_torch.mapping import gaussian_map
+
+    reg = cfg.register
+    torch.cuda.reset_peak_memory_stats()
+    app = InsMapApp(cfg, dev)
+    frames = list(app.ingest.synced_frames(replay_path))
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for synced in frames:
+                app.process(synced)
+            app.flush()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    wall = time.perf_counter() - t0
+    syncs = sum(1 for w in caught if "synchroniz" in str(w.message)
+                and not Path(w.filename).name.startswith("device_timer"))
+    ends, warm = app.process_end_s, 3
+    kf_s = (len(ends) - 1 - warm) / (ends[-1] - ends[warm])
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "map")
+        gmap = app.finalize_and_export(prefix, min_points_per_voxel=reg.min_points_per_voxel)
+        n_valid = int(gmap.num_valid())
+        lines = {sfx: len(Path(prefix + sfx).read_text().splitlines())
+                 for sfx in ("_ellipsoids.txt", "_voxels.txt", "_summary.txt", "_means.ply")}
+    assert lines["_ellipsoids.txt"] == lines["_voxels.txt"] == n_valid + 1 > 1, lines
+    assert lines["_means.ply"] == n_valid + 7 and lines["_summary.txt"] == 2, lines
+    st = app.stats
+    log(f"[{card}] ins_map: {len(frames)} keyframes in {wall:.3f} s; steady-state {kf_s:.3f} keyframes/s "
+        f"(host clock, keyframes {warm + 1}..{len(ends) - 1}); voxel {app.res} m, capacity "
+        f"{reg.map_capacity}: {int((st.n > 0).sum())} voxels, {n_valid} valid after finalize, overflow "
+        f"{int(st.overflow)}, out of range {app.out_of_range_points}, {int(st.n.sum())} points; host "
+        f"syncs {syncs} ({syncs / len(frames):.2f} per keyframe); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; export files {lines}")
+    for name, sp in app.device_timer.summary(skip_first=1).items():
+        log(f"[{card}]   ins_map stage {name}: median {sp['median_ms']:.3f} ms, mean {sp['mean_ms']:.3f} ms "
+            f"over {sp['n']}")
+    # a split run: checkpoint, resume in a new app, the rest there
+    first = InsMapApp(cfg, dev)
+    for synced in frames[:INS_MAP_SPLIT]:
+        first.process(synced)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ins_map.npz")
+        first.save_checkpoint(path)
+        resumed = InsMapApp(cfg, dev).resume_from(path)
+    for synced in frames[INS_MAP_SPLIT:]:
+        resumed.process(synced)
+    for k in gaussian_map.VoxelStats._fields:
+        assert torch.equal(getattr(resumed.stats, k), getattr(st, k)), f"ins_map split != continuous: {k}"
+    log(f"[{card}] ins_map resume: {INS_MAP_SPLIT} keyframes, checkpoint, {len(frames) - INS_MAP_SPLIT} "
+        "resumed: statistics equal to the continuous run's, bit for bit")
+    # the merged statistics of the longest prefix without overflow against
+    # one pass over the same INS-posed sweeps
+    pre, states = InsMapApp(cfg, dev), []
+    for synced in frames[:INS_MAP_PREFIX]:
+        pre.process(synced)
+        states.append(pre.stats)
+    m = max(i + 1 for i, s_ in enumerate(states) if int(s_.overflow) == 0)
+    merged = states[m - 1]
+    scans = [pre.ingest.project(f) for f in frames[:m]]
+    world = torch.cat([se3.transform_points(pose_to_device(e.pose, dev), sc.points)
+                       for e, sc in zip(pre.trajectory, scans)])
+    one = gaussian_map.stats_from_points(world, torch.cat([sc.mask for sc in scans]), merged.origin,
+                                         merged.resolution, reg.map_capacity)
+    assert torch.equal(merged.keys, one.keys) and torch.equal(merged.n, one.n)
+    errs = {}
+    for k in ("sx", "sxx"):
+        a, b = getattr(merged, k).double(), getattr(one, k).double()
+        errs[k] = float(((a - b).abs() / (1e-5 * b.abs() + 1e-6 * b.abs().max())).max())
+    assert all(v <= 1.0 for v in errs.values()), errs
+    log(f"[{card}] ins_map merge: {m} sweeps merged one at a time == one stats_from_points: keys and "
+        f"counts exact ({int(merged.n.sum())} points, {int((merged.n > 0).sum())} voxels), sums' worst "
+        f"error / (rtol 1e-5 + 1e-6 of the largest) {errs}")
+
+
 def main():
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
@@ -636,6 +840,10 @@ def main():
         log(f"simulated {N_SWEEPS} skewed sweeps in {time.perf_counter() - t0:.1f} s")
         entries = kernel_phase(torch, path, gt, cfg, dev, card)
         phases = {"lo_svn": (lambda: LoSvnApp(cfg, dev), ("ndt_pair", "aniso_pair"), 0.005)}
+        cfg_kd = dataclasses.replace(
+            cfg, register=dataclasses.replace(cfg.register, svn_search_method="KDTREE"))
+        phases["lo_svn KDTREE"] = (lambda: LoSvnApp(cfg_kd, dev), ("ndt_pair_gated",),
+                                   LO_SVN_KDTREE_ATE_BOUND)
         for label, (method, change, kernel, bound) in ODOM_PHASES.items():
             phases[f"odom {label}"] = (
                 lambda m=method, c=change: OdomNdtApp(odom_cfg(tconfig, cfg, m, **c), dev, window=6),
@@ -657,6 +865,7 @@ def main():
             counts = resume_phase(torch, label, phases[label][0], path, split, continuous[label], card)
             for k, v in counts.items():
                 launches[k] += v
+        ins_map_phase(torch, path, cfg, dev, card)
     for e in entries:
         e["launches"] = launches[e["name"]]
     log(card)

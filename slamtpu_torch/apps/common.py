@@ -1,5 +1,6 @@
-"""Shared app plumbing: replay ingest and INS pose seeding (port of
-slamtpu/apps/common.py, the parts lo_svn uses).
+"""Shared app plumbing: replay ingest, INS pose seeding, the RegMap
+rebuild cadence and the search-mode switch (port of slamtpu/apps/common.py,
+the parts the ported apps use).
 
 Packets decode on the host (numpy + the native decoders), sync with the
 INS stream, and each sweep reaches the device as one packed buffer.
@@ -7,6 +8,7 @@ INS stream, and each sweep reaches the device as one packed buffer.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Iterator, List, Optional
 
 import numpy as np
@@ -161,17 +163,43 @@ def maybe_deskew(scan: ScanBuffer, synced: SyncedFrame, ref_lla, enabled: bool) 
     return deskew_scan(scan, pose_to_device(pose_s, dev, dt), pose_to_device(pose_e, dev, dt))
 
 
+_log = logging.getLogger("slamtpu_torch.apps")
+_direct1_warned = False
+SEARCH_METHODS = ("DIRECT7", "DIRECT1", "KDTREE")
+
+
+def search_radius(method: str, resolution: float) -> float:
+    """The KDTREE gate's radius of a search method (one resolution, the
+    reference's radius search over leaf centroids), 0 for DIRECT7 and
+    DIRECT1. DIRECT1 runs DIRECT7: the reference reads ``use_direct1`` only
+    in its sorted-key objective, never on the RegMap path every app takes,
+    and the port does the same; the first DIRECT1 logs a warning."""
+    global _direct1_warned
+    if method not in SEARCH_METHODS:
+        raise ValueError(f"unknown search method {method!r}; known: {SEARCH_METHODS}")
+    if method == "DIRECT1" and not _direct1_warned:
+        _direct1_warned = True
+        _log.warning("search method DIRECT1 runs DIRECT7 on the RegMap path, as in the "
+                     "reference (its use_direct1 is read by the sorted-key objective only)")
+    return float(resolution) if method == "KDTREE" else 0.0
+
+
 class MapRebuildCadence:
     """Rebuild cadence of the cached RegMap (RegisterConfig.map_rebuild_every):
     periodic, forced when the map origin moves, and forced once after a
-    resume (``force_next``: checkpoints do not carry the RegMap)."""
+    resume (``force_next``: checkpoints do not carry the RegMap). The empty
+    cache has the builder's shapes: 6V rows and no aux table when either
+    search method is KDTREE (its builder dilates 27 ways), else 4V."""
 
     def __init__(self, register_cfg, grid_shape, device, with_aux: bool = False):
         self._every = max(int(register_cfg.map_rebuild_every), 1)
         self._idx = 0
         self.force_next = False
-        self.regmap = empty_regmap(register_cfg.map_capacity, grid_shape, device,
-                                   with_aux=with_aux)
+        kdtree = "KDTREE" in (register_cfg.search_method, register_cfg.svn_search_method)
+        cap = register_cfg.map_capacity
+        self.regmap = empty_regmap(cap, grid_shape, device,
+                                   dilated_capacity=6 * cap if kdtree else None,
+                                   with_aux=with_aux and not kdtree)
 
     def tick(self, force: bool = False) -> bool:
         """Advance one keyframe; True when this keyframe must rebuild."""

@@ -22,9 +22,17 @@ reads: one per Newton outer iteration (``fused_math.HOST_READS``) and the
 RegMap overflow count every 32 keyframes.
 
 ``save_checkpoint``/``resume_from`` carry the window, the keyframe ring
-and the host state (``runtime.checkpoint``). Not ported, each raising
+and the host state (``runtime.checkpoint``). Not ported, raising
 NotImplementedError: ``use_regmap=False`` (ROADMAP A, "Do not port
-these") and the search modes other than DIRECT7 (ROADMAP A 2.4).
+these").
+
+Search modes, as the reference: DIRECT1 runs DIRECT7
+(``common.search_radius``). KDTREE (either search method) cannot run in
+the reference: its NewtonConfig sets no radius, so its builder makes the
+DIRECT7 layout (4V rows), while its rebuild cadence caches an empty KDTREE
+layout (6V rows), and the two branches of its rebuild ``lax.cond`` differ
+in shape, a TypeError at the first registration. The port raises at
+construction with that reason.
 """
 from __future__ import annotations
 
@@ -51,7 +59,8 @@ from ..runtime.device_timer import DeviceStageTimer
 from ..runtime.device_timer import span as _span
 from ..runtime.stats import KeyFrameStats, StageTimer, StatsArchive
 from .common import (IngestPipeline, MapRebuildCadence, TrajectoryEntry, ins_pose_ned, maybe_deskew,
-                     np_between, np_pose7, np_sqrt_info_from_cov, np_sqrt_info_from_sigmas, to_device)
+                     np_between, np_pose7, np_sqrt_info_from_cov, np_sqrt_info_from_sigmas,
+                     search_radius, to_device)
 from .odom_ndt import _register_step
 
 log = logging.getLogger("slamtpu_torch.ligo_tc")
@@ -127,9 +136,14 @@ class LigoTcApp:
         if not reg.use_regmap:
             raise NotImplementedError("use_regmap=False (the sorted-key objective) is not ported "
                                       "(ROADMAP A, 'Do not port these')")
-        if reg.search_method != "DIRECT7":
-            raise NotImplementedError(f"the {reg.search_method} search mode is not ported "
-                                      "(ROADMAP A 2.4)")
+        if "KDTREE" in (reg.search_method, reg.svn_search_method):
+            cap = reg.map_capacity
+            raise ValueError(
+                "ligo_tc cannot run the KDTREE search mode, as in the reference: its Newton "
+                f"builds the DIRECT7 RegMap ({4 * cap + 1} rows) while the rebuild cache holds the "
+                f"KDTREE shape ({6 * cap + 1} rows), and the reference's rebuild lax.cond fails "
+                "on that shape mismatch")
+        search_radius(reg.search_method, reg.ndt_resolution)  # DIRECT1 runs DIRECT7, with a warning
         self.ingest = IngestPipeline(self.cfg, self.device)
         self.newton_cfg = NewtonConfig(
             resolution=reg.ndt_resolution,

@@ -9,6 +9,12 @@ and insert the new cloud into the ring. All of it is queued on one device
 without host syncs in between; results are read back in batches (``flush``)
 so the next sweep's decode overlaps the device work.
 
+In the KDTREE search mode (``svn_search_method``) the RegMap comes from
+``build_regmap_kdtree``, the NDT pair kernel gates its slots at the gather
+pose, and the polish stays on the NDT score (the layout has no aux table),
+as in the reference. DIRECT1 runs DIRECT7, as the reference's RegMap path
+does (``common.search_radius``).
+
 ``save_checkpoint``/``resume_from`` carry the ring, the origin and the
 particle generator (``runtime.checkpoint``).
 """
@@ -28,7 +34,7 @@ from ..lidar.deskew import deskew_points
 from ..lidar.project import project_frame_packed
 from ..mapping import gaussian_map
 from ..ndt.gicp import regularize_plane_covariance, sweep_point_covariances
-from ..ndt.regmap import build_regmap
+from ..ndt.regmap import build_regmap, build_regmap_kdtree
 from ..ndt.svn import SvnConfig, svn_align_reg
 from ..runtime import checkpoint
 from ..runtime.config import PipelineConfig
@@ -36,7 +42,8 @@ from ..runtime.device_timer import DeviceStageTimer
 from ..runtime.device_timer import span as _span
 from ..runtime.stats import KeyFrameStats, StageTimer, StatsArchive
 from .common import (IngestPipeline, MapRebuildCadence, TrajectoryEntry, deskew_interval_poses,
-                     ins_pose_ned, maybe_deskew, np_pose7, pose_to_device, to_device)
+                     ins_pose_ned, maybe_deskew, np_pose7, pose_to_device, search_radius,
+                     to_device)
 
 log = logging.getLogger("slamtpu_torch.lo_svn")
 
@@ -92,11 +99,14 @@ def _lo_svn_core(
                 kf_points.reshape(W * N, 3), bmask.reshape(W * N), origin, svn_cfg.resolution,
                 capacity=capacity, min_points_per_voxel=min_points,
             )
-            aux = None
-            if aniso:  # polish payload: plane-regularized target covariances
-                cov_r = regularize_plane_covariance(gmap.cov)
-                aux = torch.cat([gmap.mean, cov_r.reshape(-1, 9)], dim=1)
-            regmap = build_regmap(gmap, grid_shape=grid_shape, aux_payload=aux)
+            if svn_cfg.kd_radius > 0.0:
+                regmap = build_regmap_kdtree(gmap, grid_shape=grid_shape)
+            else:
+                aux = None
+                if aniso:  # polish payload: plane-regularized target covariances
+                    cov_r = regularize_plane_covariance(gmap.cov)
+                    aux = torch.cat([gmap.mean, cov_r.reshape(-1, 9)], dim=1)
+                regmap = build_regmap(gmap, grid_shape=grid_shape, aux_payload=aux)
     src_cov = None
     if aniso:
         with _span(timer, "src_covariances"):
@@ -160,9 +170,7 @@ class LoSvnApp:
         if not reg.use_regmap:
             raise NotImplementedError("use_regmap=False (the sorted-key svn_align path) is not "
                                       "ported (ROADMAP A, 'Do not port these')")
-        if reg.svn_search_method != "DIRECT7":
-            raise NotImplementedError(f"svn search method {reg.svn_search_method} is not ported "
-                                      "(ROADMAP A 2.4)")
+        kd_radius = search_radius(reg.svn_search_method, reg.svn_resolution)
         self.ingest = IngestPipeline(self.cfg, self.device)
         self.svn_cfg = SvnConfig(
             resolution=reg.svn_resolution,
@@ -172,8 +180,11 @@ class LoSvnApp:
             kernel_h=reg.svn_kernel_h,
             step_size=reg.svn_step_size,
             stop_thresh=reg.svn_stop_thresh,
+            use_direct1=reg.svn_search_method == "DIRECT1",
+            kd_radius=kd_radius,
             polish_iters=reg.svn_polish_iters,
-            polish_objective=reg.svn_polish_objective,
+            # the KDTREE layout has no aux table: the polish stays on the NDT score
+            polish_objective=reg.svn_polish_objective if kd_radius <= 0.0 else "ndt",
             polish_from=reg.svn_polish_from,
         )
         self.grid_shape = tuple(reg.reg_grid_shape)

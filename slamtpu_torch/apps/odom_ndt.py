@@ -17,10 +17,17 @@ kernel) or with ``gicp_source_cov="anisotropic"`` (``gicp_align_aniso``
 over the plane-to-plane pair kernel, with stencil or voxel source
 covariances); ``SVNNDT`` (``svn_align_reg``, the particle draws from the
 app's seeded generator, one draw a keyframe); and ``NDT_OMP_MULTIRES``
-(``multires_align`` over a two-level pyramid). These raise
-NotImplementedError: the KDTREE and DIRECT1 search modes (ROADMAP A 2.4),
-the sorted-key path (use_regmap=False; ROADMAP A, "Do not port these")
-and loop closure (ROADMAP A 4). ``save_checkpoint``/``resume_from`` carry
+(``multires_align`` over a two-level pyramid).
+
+Search modes, as the reference: with ``search_method="KDTREE"`` NDT_OMP
+registers on a ``build_regmap_kdtree`` map with the radius gate in the NDT
+pair kernel, and isotropic GICP gates the VGICP pair kernel over its
+DIRECT7 ``gicp_map`` table (the reference's fused contract; its XLA path
+skips the gate); SVNNDT takes ``svn_search_method`` the same way.
+Anisotropic GICP and NDT_OMP_MULTIRES ignore the mode. DIRECT1 runs
+DIRECT7 (``common.search_radius``). These raise NotImplementedError: the
+sorted-key path (use_regmap=False; ROADMAP A, "Do not port these") and
+loop closure (ROADMAP A 4). ``save_checkpoint``/``resume_from`` carry
 the window and the host state (``runtime.checkpoint``).
 
 Dtypes: registration runs in float32. The window carry (poses, priors,
@@ -55,7 +62,7 @@ from ..ndt.fused_math import gicp_align_aniso, newton_align_fused
 from ..ndt.gicp import gicp_map, gicp_map_aniso, sweep_point_covariances
 from ..ndt.multires import build_pyramid, multires_align
 from ..ndt.newton import NewtonConfig, NewtonResult
-from ..ndt.regmap import RegMap, build_regmap
+from ..ndt.regmap import RegMap, build_regmap, build_regmap_kdtree
 from ..ndt.svn import SvnConfig, SvnResult, svn_align_reg
 from ..runtime import checkpoint
 from ..runtime.config import PipelineConfig
@@ -63,7 +70,7 @@ from ..runtime.device_timer import DeviceStageTimer
 from ..runtime.device_timer import span as _span
 from ..runtime.stats import KeyFrameStats, StageTimer, StatsArchive
 from .common import (IngestPipeline, TrajectoryEntry, ins_pose_ned, maybe_deskew, np_pose7,
-                     to_device)
+                     search_radius, to_device)
 
 log = logging.getLogger("slamtpu_torch.odom_ndt")
 
@@ -100,7 +107,10 @@ def _register_step(
     reference's registration_method switch, run/pipeline.cpp:464-481):
     NDT_OMP -> Newton NDT, GICP -> VGICP (plane-to-plane with
     ``cfg.gicp_aniso``), SVNNDT -> the SVN posterior, NDT_OMP_MULTIRES ->
-    the coarse-to-fine pyramid. ``final_eval`` is newton_align_fused's
+    the coarse-to-fine pyramid. In the KDTREE search mode (``cfg.kd_radius``,
+    or ``svn_cfg.kd_radius`` for SVNNDT) NDT_OMP and SVNNDT build the KDTREE
+    layout; the gate itself is the Newton driver's and the SVN's.
+    ``final_eval`` is newton_align_fused's
     contract switch for NDT_OMP and isotropic GICP: the app keeps the
     reference's default (score and Hessian of the last applied step); the
     plane-to-plane and pyramid engines take the contract of the reference's
@@ -125,11 +135,15 @@ def _register_step(
         with _span(timer, "map_build"):
             gmap = gaussian_map.build_map(target_points, target_mask, origin, cfg.resolution,
                                           capacity=capacity, min_points_per_voxel=min_points)
+            kd_radius = svn_cfg.kd_radius if method == "SVNNDT" else cfg.kd_radius
+            build = build_regmap
             if aniso:
                 gmap = gicp_map_aniso(gmap)
             elif method == "GICP":
                 gmap = gicp_map(gmap)
-            regmap = build_regmap(gmap, grid_shape=grid_shape)
+            elif kd_radius > 0.0:
+                build = build_regmap_kdtree
+            regmap = build(gmap, grid_shape=grid_shape)
             if regmap_cache is not None:
                 regmap = RegMap(*(None if a is None else a.to(c.dtype)
                                   for a, c in zip(regmap, regmap_cache)))
@@ -320,9 +334,6 @@ class OdomNdtApp:
             raise ValueError(f"unknown registration method {self.method!r}; known: {KNOWN_METHODS}")
         # the parts of the reference app this port does not carry: they
         # raise instead of running something else
-        search = reg.svn_search_method if self.method == "SVNNDT" else reg.search_method
-        if search != "DIRECT7":
-            raise NotImplementedError(f"the {search} search mode is not ported (ROADMAP A 2.4)")
         if not reg.use_regmap:
             raise NotImplementedError("use_regmap=False (the sorted-key objective) is not ported "
                                       "(ROADMAP A, 'Do not port these')")
@@ -335,6 +346,9 @@ class OdomNdtApp:
             max_iterations=reg.ndt_max_iterations,
             trans_eps=reg.gicp_transform_epsilon if self.method == "GICP"
             else reg.ndt_transform_epsilon,
+            use_direct1=reg.search_method == "DIRECT1",
+            # KDTREE: radius search over leaf centroids at one resolution
+            kd_radius=search_radius(reg.search_method, reg.ndt_resolution),
             gicp_max_corr_dist=reg.gicp_corr_dist_threshold,
             gicp_aniso=reg.gicp_source_cov == "anisotropic",
         )
@@ -355,6 +369,8 @@ class OdomNdtApp:
                 kernel_h=reg.svn_kernel_h,
                 step_size=reg.svn_step_size,
                 stop_thresh=reg.svn_stop_thresh,
+                use_direct1=reg.svn_search_method == "DIRECT1",
+                kd_radius=search_radius(reg.svn_search_method, reg.svn_resolution),
                 polish_iters=reg.svn_polish_iters,
                 # the RegMap carries no aux payload: the target is rebuilt
                 # every keyframe, so the polish stays on the NDT score

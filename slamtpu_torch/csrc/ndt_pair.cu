@@ -10,6 +10,11 @@
 //                              the icov slots) (B2);
 //   ndt_pair_kernel<kAniso> <- _kernel_aniso (+ _finish_block): plane-to-plane
 //                              GICP, the SVN polish (B3).
+// B1 and B2 also come gated (template flag Gate), for the KDTREE search
+// mode: the reference zeroes the validity flag of each slot whose centroid
+// lies farther than the radius from the point at the GATHER pose, as it
+// gathers the rows (gather_megaT with kd_radius, pallas_math.py:294-317);
+// here the kernel gathers the rows, so it applies the gate itself.
 // All reduce to the same 44 sums per pose: [0] score, [1:4] grad omega,
 // [4:7] grad v, [7:43] Gauss-Newton Hessian row-major in [omega, v],
 // [43] count of contributing pairs. The caller adds lambda * I.
@@ -30,6 +35,14 @@
 // point's body-frame source covariance C_src, scovT (9, N) planar. The
 // kernel gathers the rows itself: the reference gathers them outside its
 // kernels only because Mosaic cannot gather from large tables.
+//
+// The gate (Gate = true): a (16,) float block g = R_g row-major (9), t_g
+// (3), r^2, pad, where (R_g, t_g) is the pose at which the rows were looked
+// up (the particle mean in SVN, the outer iteration's pose in Newton, whose
+// inner steps reuse rows and gate). A lane computes q = R_g x + t_g once per
+// point and tile, from the row it already holds in registers, and clears
+// slot s of its valid bits unless |q - mu_s|^2 <= r^2, before the pose
+// loop. The ungated instantiations compile without it.
 //
 // B3 per pair: S = C_t + R C_src R^T, its closed-form adjugate inverse
 // (det taken as 1 unless |det| > 1e-30, as the reference), then B2's
@@ -154,6 +167,25 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t by
 }
 
 // --- the pair math ---
+
+// The KDTREE gate: the valid bits of a point's row, less the slots whose
+// centroid mu_s (row[12 s .. 12 s + 2]) lies farther than r from the point
+// at the gather pose, q = R_g x + t_g (g: R_g(9), t_g(3), r^2, pad). A NaN
+// distance fails the test, as in the plain version.
+__device__ __forceinline__ unsigned gate_slots(const float* __restrict__ g, float x0, float x1,
+                                               float x2, const float (&row)[84], unsigned valid) {
+  const float4* gp = reinterpret_cast<const float4*>(g);
+  const float4 g0 = __ldg(gp), g1 = __ldg(gp + 1), g2 = __ldg(gp + 2), g3 = __ldg(gp + 3);
+  const float q0 = g0.x * x0 + g0.y * x1 + g0.z * x2 + g2.y;
+  const float q1 = g0.w * x0 + g1.x * x1 + g1.y * x2 + g2.z;
+  const float q2 = g1.z * x0 + g1.w * x1 + g2.x * x2 + g2.w;
+#pragma unroll
+  for (int s = 0; s < 7; ++s) {
+    const float d0 = q0 - row[12 * s], d1 = q1 - row[12 * s + 1], d2 = q2 - row[12 * s + 2];
+    if (!(d0 * d0 + d1 * d1 + d2 * d2 <= g3.x)) valid &= ~(1u << s);
+  }
+  return valid;
+}
 
 __device__ __forceinline__ int upper3(int a, int b) {
   const int i = min(a, b), j = max(a, b);
@@ -481,18 +513,20 @@ __device__ __forceinline__ void fill_slot(int j, int s, const int* __restrict__ 
 // shared memory: the ring (kStages x kTile rows of kPitch floats), the K
 // poses' params, each warp's 32 accumulators per pose, and the ring's
 // lead lanes (fill_slot).
-// scovT: (9, N) source covariances (kAniso only; unread otherwise).
+// scovT: (9, N) source covariances (kAniso only; unread otherwise); gate:
+// the (16,) gate block (Gate only; unread otherwise).
 // partials: (gridDim.x, K, kAcc) floats and gsums: (groups, K, kAcc)
 // doubles of scratch; tickets: 1 + groups zeroed counters, which the
 // finishing blocks reset; out: (K, 44).
-template <Cost C>
+template <Cost C, bool Gate>
 __global__ void __launch_bounds__(kPairThreads, kBlocksPerSM)
 ndt_pair_kernel(const float* __restrict__ params, const float* __restrict__ ptsT,
                 const float* __restrict__ table, const int* __restrict__ rows,
-                const float* __restrict__ scovT, int N, int K, int R,
+                const float* __restrict__ scovT, const float* __restrict__ gate, int N, int K, int R,
                 float* __restrict__ partials, double* __restrict__ gsums,
                 unsigned int* __restrict__ tickets, float* __restrict__ out) {
   static_assert(kStages == kPairWarps, "warp s owns ring slot s");
+  static_assert(!(Gate && C == kAniso), "the gate is for B1 and B2");
   extern __shared__ __align__(128) float smem[];
   float* ring = smem;
   float* sparams = ring + kRingFloats;
@@ -558,6 +592,7 @@ ndt_pair_kernel(const float* __restrict__ params, const float* __restrict__ ptsT
         valid = (f0.x > 0.5f) | ((f0.y > 0.5f) << 1) | ((f0.z > 0.5f) << 2) |
                 ((f0.w > 0.5f) << 3) | ((f1.x > 0.5f) << 4) | ((f1.y > 0.5f) << 5) |
                 ((f1.z > 0.5f) << 6);
+        if constexpr (Gate) valid = gate_slots(gate, x0, x1, x2, row, valid);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&bars[kStages + s]);  // this warp has its rows
@@ -624,42 +659,44 @@ ndt_pair_kernel(const float* __restrict__ params, const float* __restrict__ ptsT
 // Lets the kernel take `smem` bytes of dynamic shared memory, with the SM's
 // unified L1 / shared memory split all to shared memory (kBlocksPerSM
 // blocks of ~59 KB at K = 20). Done once per size.
-template <Cost C>
+template <Cost C, bool Gate>
 cudaError_t grant_smem(size_t smem) {
   static size_t smem_set = 0;  // the largest dynamic shared memory granted so far
   if (smem <= smem_set) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(ndt_pair_kernel<C>,
+  cudaError_t e = cudaFuncSetAttribute(ndt_pair_kernel<C, Gate>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(ndt_pair_kernel<C>, cudaFuncAttributePreferredSharedMemoryCarveout,
+    e = cudaFuncSetAttribute(ndt_pair_kernel<C, Gate>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e == cudaSuccess) smem_set = smem;
   return e;
 }
 
-template <Cost C>
+template <Cost C, bool Gate = false>
 int pair_launch(const float* params, const float* ptsT, const float* table, const int* rows,
-                const float* scovT, int N, int K, int R, int grid, float* partials,
-                double* gsums, unsigned int* tickets, float* out, cudaStream_t st) {
+                const float* scovT, const float* gate, int N, int K, int R, int grid,
+                float* partials, double* gsums, unsigned int* tickets, float* out,
+                cudaStream_t st) {
   if (K <= 0) return 0;
   if (K > kMaxPoses || R <= 0) return (int)cudaErrorInvalidValue;
   if (N <= 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * K * kOut, st);
   if (grid <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = pair_smem_bytes(K);
-  const cudaError_t e = grant_smem<C>(smem);
+  const cudaError_t e = grant_smem<C, Gate>(smem);
   if (e != cudaSuccess) return (int)e;
-  ndt_pair_kernel<C><<<grid, kPairThreads, smem, st>>>(params, ptsT, table, rows, scovT, N, K, R,
-                                                      partials, gsums, tickets, out);
+  ndt_pair_kernel<C, Gate><<<grid, kPairThreads, smem, st>>>(
+      params, ptsT, table, rows, scovT, gate, N, K, R, partials, gsums, tickets, out);
   return (int)cudaGetLastError();
 }
 
-template <Cost C>
+template <Cost C, bool Gate = false>
 int blocks_per_sm(int K) {
   const size_t smem = pair_smem_bytes(K);
   int n = 0;
-  if (grant_smem<C>(smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, ndt_pair_kernel<C>, kPairThreads, smem) !=
-          cudaSuccess)
+  if (grant_smem<C, Gate>(smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, ndt_pair_kernel<C, Gate>, kPairThreads,
+                                                    smem) != cudaSuccess)
     return -1;
   return n;
 }
@@ -685,13 +722,15 @@ int ndt_pair_grid(int N, int device) {
   return n_tiles < kBlocksPerSM * sms ? n_tiles : kBlocksPerSM * sms;
 }
 
-// Blocks of the kernel of `cost` (0 B1, 1 B2, 2 B3) one SM holds at K
-// poses; -1 on error.
+// Blocks of the kernel of `cost` (0 B1, 1 B2, 2 B3; 3 gated B1, 4 gated
+// B2) one SM holds at K poses; -1 on error.
 int ndt_pair_blocks_per_sm(int K, int cost) {
   switch (cost) {
-    case kNdt: return blocks_per_sm<kNdt>(K);
-    case kGicp: return blocks_per_sm<kGicp>(K);
-    case kAniso: return blocks_per_sm<kAniso>(K);
+    case 0: return blocks_per_sm<kNdt>(K);
+    case 1: return blocks_per_sm<kGicp>(K);
+    case 2: return blocks_per_sm<kAniso>(K);
+    case 3: return blocks_per_sm<kNdt, true>(K);
+    case 4: return blocks_per_sm<kGicp, true>(K);
     default: return -1;
   }
 }
@@ -707,15 +746,33 @@ const char* ndt_pair_error_string(int code) {
 int ndt_pair_launch(const float* params, const float* ptsT, const float* table, const int* rows,
                     int N, int K, int R, int grid, float* partials, double* gsums,
                     unsigned int* tickets, float* out, void* stream) {
-  return pair_launch<kNdt>(params, ptsT, table, rows, nullptr, N, K, R, grid, partials, gsums,
-                           tickets, out, (cudaStream_t)stream);
+  return pair_launch<kNdt>(params, ptsT, table, rows, nullptr, nullptr, N, K, R, grid, partials,
+                           gsums, tickets, out, (cudaStream_t)stream);
 }
 
 int gicp_pair_launch(const float* params, const float* ptsT, const float* table, const int* rows,
                      int N, int K, int R, int grid, float* partials, double* gsums,
                      unsigned int* tickets, float* out, void* stream) {
-  return pair_launch<kGicp>(params, ptsT, table, rows, nullptr, N, K, R, grid, partials, gsums,
-                            tickets, out, (cudaStream_t)stream);
+  return pair_launch<kGicp>(params, ptsT, table, rows, nullptr, nullptr, N, K, R, grid, partials,
+                            gsums, tickets, out, (cudaStream_t)stream);
+}
+
+// As ndt_pair_launch and gicp_pair_launch, with the KDTREE gate: gate is
+// the (16,) block R_g (9), t_g (3), r^2, pad, 16-byte aligned.
+int ndt_pair_gated_launch(const float* params, const float* ptsT, const float* table,
+                          const int* rows, const float* gate, int N, int K, int R, int grid,
+                          float* partials, double* gsums, unsigned int* tickets, float* out,
+                          void* stream) {
+  return pair_launch<kNdt, true>(params, ptsT, table, rows, nullptr, gate, N, K, R, grid, partials,
+                                 gsums, tickets, out, (cudaStream_t)stream);
+}
+
+int gicp_pair_gated_launch(const float* params, const float* ptsT, const float* table,
+                           const int* rows, const float* gate, int N, int K, int R, int grid,
+                           float* partials, double* gsums, unsigned int* tickets, float* out,
+                           void* stream) {
+  return pair_launch<kGicp, true>(params, ptsT, table, rows, nullptr, gate, N, K, R, grid,
+                                  partials, gsums, tickets, out, (cudaStream_t)stream);
 }
 
 // As ndt_pair_launch, over the aux table, with scovT: (9, N) source
@@ -723,8 +780,8 @@ int gicp_pair_launch(const float* params, const float* ptsT, const float* table,
 int aniso_pair_launch(const float* params, const float* ptsT, const float* table, const int* rows,
                       const float* scovT, int N, int K, int R, int grid, float* partials,
                       double* gsums, unsigned int* tickets, float* out, void* stream) {
-  return pair_launch<kAniso>(params, ptsT, table, rows, scovT, N, K, R, grid, partials, gsums,
-                             tickets, out, (cudaStream_t)stream);
+  return pair_launch<kAniso>(params, ptsT, table, rows, scovT, nullptr, N, K, R, grid, partials,
+                             gsums, tickets, out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,2 +1,3 @@
 from . import voxel
-from .gaussian_map import GaussianMap, VoxelStats, build_map, finalize, stats_from_points
+from .gaussian_map import (GaussianMap, VoxelStats, build_map, finalize, merge_stats,
+                           stats_from_points)

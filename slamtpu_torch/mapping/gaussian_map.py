@@ -157,6 +157,33 @@ def stats_from_points(points, mask, origin, resolution, capacity: int) -> VoxelS
     return VoxelStats(slot_keys, n, sx, sxx, origin, resolution, overflow)
 
 
+def merge_stats(a: VoxelStats, b: VoxelStats, capacity: int = None) -> VoxelStats:
+    """Merge two statistics sets of the same origin and resolution: the two
+    sorted slot arrays sorted together (stable: ``a``'s slot before ``b``'s
+    of the same key) and summed per key into ``capacity`` slots (default the
+    larger of the two). The float sums go through ``segment_sum``, so a
+    merge repeats bit for bit on either device and a resumed map equals a
+    continuous one. Overflow adds up: both inputs' and the distinct keys
+    beyond ``capacity``."""
+    capacity = capacity or max(a.keys.shape[0], b.keys.shape[0])
+    order, skeys, first, seg = _sorted_segments(torch.cat([a.keys, b.keys]), capacity)
+    n = torch.cat([a.n, b.n])[order]
+    sx = torch.cat([a.sx, b.sx])[order]
+    sxx = torch.cat([a.sxx, b.sxx])[order].reshape(-1, 9)
+    n_out = torch.zeros(capacity + 1, dtype=torch.int32, device=n.device).index_add_(0, seg, n)
+    sx_out = segment_sum(sx, seg, capacity + 1)
+    sxx_out = segment_sum(sxx, seg, capacity + 1)
+    keys_out = torch.full(
+        (capacity + 1,), int(np.iinfo(np.int32).min), dtype=torch.int32, device=n.device
+    ).scatter_reduce_(0, seg, skeys, reduce="amax")
+    n_out, keys_out = n_out[:capacity], keys_out[:capacity]
+    keys_out = torch.where(n_out > 0, keys_out, voxel.INVALID_KEY)
+    n_distinct = torch.sum(first.to(torch.int32))
+    overflow = (a.overflow + b.overflow + torch.clamp(n_distinct - capacity, min=0)).to(torch.int32)
+    return VoxelStats(keys_out, n_out, sx_out[:capacity], sxx_out[:capacity].view(capacity, 3, 3),
+                      a.origin, a.resolution, overflow)
+
+
 def finalize(
     stats: VoxelStats, min_points_per_voxel: int = 6, min_covar_eigvalue_mult: float = 0.01
 ) -> GaussianMap:

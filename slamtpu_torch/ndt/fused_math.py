@@ -17,6 +17,13 @@ each beside its plain PyTorch version:
   the aux table ``regmap.packed_aux`` (the SVN polish) or the table of a
   ``gicp_map_aniso`` RegMap (odom_ndt's anisotropic GICP engine).
 
+B1 and B2 also run gated, for the KDTREE search mode (CUDA
+``ndt_pair_kernel<kNdt, true>`` and ``<kGicp, true>``, counted as
+``ndt_pair_gated`` and ``gicp_pair_gated``): given ``gate`` (16,) = R_g(9),
+t_g(3), r^2, pad (``gate_params``), a slot counts only if its centroid lies
+within r of the point at the gather pose (R_g, t_g), the pose at which
+``grid_rows`` looked the rows up.
+
 Each takes a RegMap table (R, 96), whose last row is the all-zero
 sentinel, and each point's row index (N,) int32 (``regmap.grid_rows``),
 and gathers the rows inside the kernel; each takes params (K, 16) = R(9),
@@ -42,9 +49,10 @@ from ..core.se3 import Pose3
 from .constants import gauss_constants
 from .newton import NewtonConfig, NewtonResult, regularize_step
 from .objective import MAX_EXPONENT_ARG, MIN_FACTOR, NdtObjective, sanitize_points
-from .regmap import RegMap, grid_rows
+from .regmap import RegMap, grid_rows, radius_gate
 
-LAUNCHES = {"ndt_pair": 0, "gicp_pair": 0, "aniso_pair": 0}
+LAUNCHES = {"ndt_pair": 0, "gicp_pair": 0, "aniso_pair": 0, "ndt_pair_gated": 0,
+            "gicp_pair_gated": 0}
 # host reads of the Newton loop state (each one waits for the device)
 HOST_READS = {"newton": 0}
 
@@ -69,8 +77,10 @@ def _load():
             for fn in (lib.ndt_pair_launch, lib.gicp_pair_launch):
                 fn.argtypes = [vp] * 4 + tail
                 fn.restype = ci
-            lib.aniso_pair_launch.argtypes = [vp] * 5 + tail  # + scovT
-            lib.aniso_pair_launch.restype = ci
+            # + scovT, or + the gate block
+            for fn in (lib.aniso_pair_launch, lib.ndt_pair_gated_launch, lib.gicp_pair_gated_launch):
+                fn.argtypes = [vp] * 5 + tail
+                fn.restype = ci
             for fn in (lib.ndt_pair_max_poses, lib.ndt_pair_acc, lib.ndt_pair_group):
                 fn.argtypes = []
                 fn.restype = ci
@@ -110,21 +120,28 @@ def _check_rows_inputs(params, ptsT, table, rows):
         raise ValueError("the row table needs at least its sentinel row")
 
 
+def _check_gate(gate, dev):
+    _check(gate, (16,))
+    if gate.device != dev:
+        raise ValueError(f"the gate block is on {gate.device}, the points on {dev}")
+
+
 def _raise_on(rc, name, lib):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
                            f"({lib.ndt_pair_error_string(rc).decode()})")
 
 
-def _launch_rows(name, params, ptsT, table, rows, scovT=None):
-    """One launch of kernel ``name`` (B1, B2, or B3 with ``scovT``), the
-    rows gathered in the kernel."""
+def _launch_rows(name, params, ptsT, table, rows, extra=None):
+    """One launch of kernel ``name`` (B1, B2, or B3 with ``extra`` = scovT,
+    or gated B1 or B2 with ``extra`` = the gate block), the rows gathered in
+    the kernel."""
     lib = _load()
     K, N, R = params.shape[0], ptsT.shape[1], table.shape[0]
     if K > lib.ndt_pair_max_poses():
         raise ValueError(f"{name}: at most {lib.ndt_pair_max_poses()} poses a launch, got {K}")
-    if table.data_ptr() % 16:
-        raise ValueError(f"{name}: the row table must be 16-byte aligned")
+    if table.data_ptr() % 16 or (name.endswith("_gated") and extra.data_ptr() % 16):
+        raise ValueError(f"{name}: the row table and the gate block must be 16-byte aligned")
     dev = ptsT.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
@@ -142,7 +159,7 @@ def _launch_rows(name, params, ptsT, table, rows, scovT=None):
         partials = torch.empty((max(grid, 1), K, acc), dtype=torch.float32, device=dev)
         gsums = torch.empty((groups, K, acc), dtype=torch.float64, device=dev)
         out = torch.empty((K, 44), dtype=torch.float32, device=dev)
-        ins = (params, ptsT, table, rows) + (() if scovT is None else (scovT,))
+        ins = (params, ptsT, table, rows) + (() if extra is None else (extra,))
         ptrs = [ctypes.c_void_p(t.data_ptr()) for t in ins]
         scratch = [ctypes.c_void_p(t.data_ptr()) for t in (partials, gsums, tickets, out)]
         rc = getattr(lib, f"{name}_launch")(*ptrs, N, K, R, grid, *scratch,
@@ -153,24 +170,30 @@ def _launch_rows(name, params, ptsT, table, rows, scovT=None):
     return out
 
 
-def ndt_pair(params, ptsT, table, rows) -> torch.Tensor:
+def _gated_launch(name, params, ptsT, table, rows, gate, plain):
+    dev = _device_of(params, ptsT, table, rows)
+    _check_rows_inputs(params, ptsT, table, rows)
+    if gate is not None:
+        _check_gate(gate, dev)
+    if dev.type == "cpu":
+        return plain(params, ptsT, table, rows, gate)
+    if gate is None:
+        return _launch_rows(name, params, ptsT, table, rows)
+    return _launch_rows(f"{name}_gated", params, ptsT, table, rows, gate)
+
+
+def ndt_pair(params, ptsT, table, rows, gate=None) -> torch.Tensor:
     """NDT pair sums (K, 44) for K poses; point i's mega row is
-    ``table[rows[i]]`` (B1)."""
-    dev = _device_of(params, ptsT, table, rows)
-    _check_rows_inputs(params, ptsT, table, rows)
-    if dev.type == "cpu":
-        return _ndt_pair_plain(params, ptsT, table, rows)
-    return _launch_rows("ndt_pair", params, ptsT, table, rows)
+    ``table[rows[i]]`` (B1); with ``gate`` (``gate_params``) only the slots
+    within its radius at its pose count."""
+    return _gated_launch("ndt_pair", params, ptsT, table, rows, gate, _ndt_pair_plain)
 
 
-def gicp_pair(params, ptsT, table, rows) -> torch.Tensor:
+def gicp_pair(params, ptsT, table, rows, gate=None) -> torch.Tensor:
     """Trimmed isotropic VGICP pair sums (K, 44) over ``gicp_map`` rows (B2):
-    params[:, 13] carries max_corr_dist^2, params[:, 15] max_mahal."""
-    dev = _device_of(params, ptsT, table, rows)
-    _check_rows_inputs(params, ptsT, table, rows)
-    if dev.type == "cpu":
-        return _gicp_pair_plain(params, ptsT, table, rows)
-    return _launch_rows("gicp_pair", params, ptsT, table, rows)
+    params[:, 13] carries max_corr_dist^2, params[:, 15] max_mahal; ``gate``
+    as in ``ndt_pair``."""
+    return _gated_launch("gicp_pair", params, ptsT, table, rows, gate, _gicp_pair_plain)
 
 
 def aniso_pair(params, ptsT, table, rows, scovT) -> torch.Tensor:
@@ -205,6 +228,16 @@ def _table_rows(table, rows):
     idx = rows.long()
     idx = torch.where((idx >= 0) & (idx < R), idx, R - 1)
     return torch.where((idx == R - 1)[:, None], 0.0, table[idx])
+
+
+def _gate_valid(valid, gate, x, mu):
+    """``valid`` (N, 7) less the slots whose centroid mu (N, 7, 3) lies
+    farther than r from the point x (N, 3) at the gate's pose (the kernel's
+    ``gate_slots``); no gate keeps them all."""
+    if gate is None:
+        return valid
+    q = x @ gate[:9].reshape(3, 3).t() + gate[9:12]
+    return valid & (torch.sum((q[:, None, :] - mu) ** 2, dim=-1) <= gate[12])
 
 
 def _pose_terms(params, ptsT):
@@ -242,9 +275,10 @@ def _finish(R, x, b, M, score, count):
     return torch.cat([score[:, None], gw, gv, H.reshape(K, 36), count[:, None]], dim=1)
 
 
-def _ndt_pair_plain(params, ptsT, table, rows) -> torch.Tensor:
+def _ndt_pair_plain(params, ptsT, table, rows, gate=None) -> torch.Tensor:
     mu, icov, valid = _unpack_rows(_table_rows(table, rows))
     R, x, tp = _pose_terms(params, ptsT)
+    valid = _gate_valid(valid, gate, x, mu)
     d1 = params[:, 12].view(-1, 1, 1)
     d2 = params[:, 13].view(-1, 1, 1)
     xr = tp[:, :, None, :] - mu[None]  # (K, N, 7, 3)
@@ -282,9 +316,10 @@ def _trimmed_quadratic(R, x, tp, mu, icov, valid, params) -> torch.Tensor:
     return _finish(R, x, b, M, score, count)
 
 
-def _gicp_pair_plain(params, ptsT, table, rows) -> torch.Tensor:
+def _gicp_pair_plain(params, ptsT, table, rows, gate=None) -> torch.Tensor:
     mu, icov, valid = _unpack_rows(_table_rows(table, rows))
     R, x, tp = _pose_terms(params, ptsT)
+    valid = _gate_valid(valid, gate, x, mu)
     return _trimmed_quadratic(R, x, tp, mu, icov[None], valid, params)
 
 
@@ -316,17 +351,38 @@ def _aniso_pair_plain(params, ptsT, table, rows, scovT) -> torch.Tensor:
 # --- host side around the kernels ---
 
 
-def gather_megaT(points, mask, pose: Pose3, regmap: RegMap, grid_shape,
+def gather_megaT(points, mask, pose: Pose3, regmap: RegMap, grid_shape, kd_radius=None,
                  table: str = "packed") -> torch.Tensor:
     """Voxel assignment + mega-row gather -> (96, N) float32, from
     ``regmap.packed`` or (``table="aux"``) ``regmap.packed_aux``: the
-    reference's input to its kernels. No path of the port calls it: the
-    kernels gather the rows themselves from (table, ``grid_rows``); the
-    tests and the kernels' timing scripts use it as the reference's
-    counterpart."""
+    reference's input to its kernels. ``kd_radius`` clears the validity
+    flags of the slots outside the radius at ``pose`` (``radius_gate``). No
+    path of the port calls it: the kernels gather the rows themselves from
+    (table, ``grid_rows``) and gate them; the tests and the kernels' timing
+    scripts use it as the reference's counterpart."""
+    points, mask = sanitize_points(points, mask)
     drow = grid_rows(points, mask, pose, regmap, grid_shape)
     src = regmap.packed if table == "packed" else regmap.packed_aux
-    return src[drow].t().contiguous().to(torch.float32)
+    mega = src[drow]
+    if kd_radius is not None and kd_radius > 0.0:
+        mu, _, valid = _unpack_rows(mega)
+        tp = se3.transform_points(pose, points)
+        act = radius_gate(tp, mu, valid, kd_radius)
+        mega = torch.cat([mega[:, :84], act.to(mega.dtype), mega[:, 91:]], dim=1)
+    return mega.t().contiguous().to(torch.float32)
+
+
+def gate_params(pose: Pose3, kd_radius: float):
+    """The KDTREE gate block (16,) float32 for rows looked up at ``pose``:
+    R(9), t(3), kd_radius^2, pad; None when kd_radius is not positive
+    (DIRECT7, no gate). Built by fills and copies on the device: writing a
+    Python number through an index would wait for the device."""
+    if kd_radius is None or kd_radius <= 0.0:
+        return None
+    tail = torch.zeros(4, dtype=torch.float32, device=pose.rot.device)
+    tail[:1].fill_(float(kd_radius) * float(kd_radius))
+    return torch.cat([pose.rot.reshape(9).to(torch.float32), pose.trans.reshape(3).to(torch.float32),
+                      tail])
 
 
 def pregathered_table(megaT):
@@ -364,7 +420,7 @@ def _objective(out, batched: bool, hess_lambda) -> NdtObjective:
 
 
 def rows_objective(ptsT, table, rows, pose: Pose3, d1, d2, hess_lambda=1e-6, gicp: bool = False,
-                   gicp_max_mahal: float = 9.0, src_covT=None) -> NdtObjective:
+                   gicp_max_mahal: float = 9.0, src_covT=None, gate=None) -> NdtObjective:
     """The NDT (or, with ``gicp=True``, the trimmed VGICP) pair math for one
     pose or K poses, point i against mega row ``table[rows[i]]``. In the
     VGICP cost the table is a ``gicp_map`` RegMap's, ``d2`` carries
@@ -372,13 +428,16 @@ def rows_objective(ptsT, table, rows, pose: Pose3, d1, d2, hess_lambda=1e-6, gic
     source covariances) it runs the plane-to-plane cost: the table holds
     means and plane-regularized covariances (``regmap.packed_aux``, or
     ``packed`` of a ``gicp_map_aniso`` RegMap) and ``d2`` carries
-    max_corr_dist^2.
+    max_corr_dist^2. ``gate`` (``gate_params``, NDT and VGICP costs) applies
+    the KDTREE radius gate at the pose the rows were looked up at.
     Fields come back batched like ``pose``."""
     params = pose_params(pose, d1, d2, gicp_max_mahal, gicp)
     if src_covT is not None:
+        if gate is not None:
+            raise ValueError("the plane-to-plane cost takes no KDTREE gate")
         out = aniso_pair(params, ptsT, table, rows, src_covT)
     else:
-        out = (gicp_pair if gicp else ndt_pair)(params, ptsT, table, rows)
+        out = (gicp_pair if gicp else ndt_pair)(params, ptsT, table, rows, gate)
     return _objective(out, pose.rot.dim() == 3, hess_lambda)
 
 
@@ -406,7 +465,8 @@ def gicp_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: Newton
                      grid_shape: tuple, inner_iters: int = 1,
                      max_mahal: float = 9.0) -> NewtonResult:
     """VGICP registration on the fused kernel (regmap from ``gicp_map`` +
-    ``build_regmap``)."""
+    ``build_regmap``); ``cfg.kd_radius`` > 0 gates its slots, as the
+    reference's fused path does."""
     return newton_align_fused(points, mask, regmap, init_pose, cfg, grid_shape, inner_iters,
                               _gicp=True, _gicp_max_mahal=max_mahal)
 
@@ -448,9 +508,12 @@ def newton_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: Newt
 
     By default the returned (score, hessian, n_contrib) are those of the
     last applied step, evaluated at the pose before its retract;
-    ``final_eval=True`` evaluates them at the returned pose."""
-    if cfg.kd_radius > 0.0:
-        raise NotImplementedError("the KDTREE search mode is not ported (ROADMAP A 2.4)")
+    ``final_eval=True`` evaluates them at the returned pose.
+
+    ``cfg.kd_radius`` > 0 (the KDTREE search mode) gates the NDT and VGICP
+    costs' slots at the pose of each lookup, which the outer iteration's
+    inner steps share; the plane-to-plane cost takes no gate (the
+    reference's ``gicp_align_aniso`` applies none)."""
     d1, d2, _ = gauss_constants(cfg.resolution, cfg.outlier_ratio)
     if _gicp or src_cov is not None:
         d2 = float(cfg.gicp_max_corr_dist) ** 2  # the d2 slot carries the distance gate
@@ -460,12 +523,16 @@ def newton_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: Newt
     dev = ptsT.device
     scovT = None if src_cov is None else src_cov.reshape(-1, 9).t().contiguous().to(f32)
 
+    kd_radius = cfg.kd_radius if src_cov is None else 0.0
+
     def evaluate(pose, rows):
-        return rows_objective(ptsT, regmap.packed, rows, pose, d1, d2, cfg.hess_lambda,
-                              gicp=_gicp, gicp_max_mahal=_gicp_max_mahal, src_covT=scovT)
+        return rows_objective(ptsT, regmap.packed, rows[0], pose, d1, d2, cfg.hess_lambda,
+                              gicp=_gicp, gicp_max_mahal=_gicp_max_mahal, src_covT=scovT,
+                              gate=rows[1])
 
     def lookup(pose):
-        return grid_rows(points, mask, pose, regmap, grid_shape)
+        """(rows, gate) at ``pose``."""
+        return grid_rows(points, mask, pose, regmap, grid_shape), gate_params(pose, kd_radius)
 
     def one_step(pose, rows):
         obj = evaluate(pose, rows)

@@ -3,9 +3,7 @@
 parts of slamtpu/ndt/newton.py).
 
 The port's Newton loop runs only on the fused path
-(``fused_math.newton_align_fused``); the reference's XLA loop
-(``_newton_loop``, ``newton_align_reg``) waits with the KDTREE and DIRECT1
-search modes.
+(``fused_math.newton_align_fused``), in every search mode.
 """
 from __future__ import annotations
 
@@ -24,6 +22,8 @@ class NewtonConfig(NamedTuple):
     trans_eps: float = 1e-4  # convergence threshold on |step| (register_config.json)
     step_size: float = 1.0
     max_step_norm: float = 1.0  # trust-region style clamp on the Newton step
+    # read by the reference's sorted-key objective only: on the RegMap path
+    # DIRECT1 runs DIRECT7, in both packages
     use_direct1: bool = False
     hess_lambda: float = 1e-6
     # prior-pose regularization: a tangent-space penalty
@@ -39,8 +39,8 @@ class NewtonConfig(NamedTuple):
     gicp_max_corr_dist: float = 5.0
     # GICP engine only: plane-to-plane mode with per-point source covariances
     gicp_aniso: bool = False
-    # KDTREE search mode: > 0 gates each candidate leaf on its centroid
-    # distance (not ported: the port's Newton raises on it)
+    # KDTREE search mode: > 0 gates each candidate leaf on |point - centroid|
+    # <= kd_radius at the lookup pose (pair with build_regmap_kdtree)
     kd_radius: float = 0.0
 
 

@@ -1,5 +1,6 @@
 """Registration map layout: dense-grid DIRECT7 without per-point search
-(port of slamtpu/ndt/regmap.py, DIRECT7 builder only).
+(port of slamtpu/ndt/regmap.py: ``build_regmap``, ``build_regmap_kdtree``,
+``radius_gate`` and the row lookup).
 
 Per dilated cell (every voxel within one face step of an occupied one) a
 96-float mega row holds the 7 DIRECT7 neighbors' payloads: 12 floats each
@@ -13,11 +14,18 @@ pair lands in a distinct (row, column block), so the writes need no
 accumulation; writes with no target cell go to a scratch row past the
 table, which is cut off. Every sentinel row stays inside its tensor, so no
 index ever leaves its range.
+
+The KDTREE search mode (``build_regmap_kdtree``) fills the same layout
+with each cell's 7 leaves nearest its centre among the 27 cells around
+it; the pair kernels then keep a slot only if its centroid lies within
+the radius of the point (``radius_gate``), as the reference's radius
+search over leaf centroids does.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..core.const import constant
@@ -60,25 +68,16 @@ def _cell_of(c3, valid, bbox_min, grid_shape):
     return torch.where(ing, (rel[:, 0] * gy + rel[:, 1]) * gz + rel[:, 2], n_cells)
 
 
-def build_regmap(
-    gmap: GaussianMap,
-    grid_shape: tuple = (256, 256, 64),
-    dilated_capacity: Optional[int] = None,
-    aux_payload: Optional[torch.Tensor] = None,
-) -> RegMap:
-    """Registration layout from a finalized GaussianMap; ``aux_payload``
-    (V, 12) fills ``packed_aux`` over the same rows."""
-    V = gmap.capacity
-    D = dilated_capacity or 4 * V
+def _dilated_grid(keys, offsets, D: int, grid_shape: tuple):
+    """The dilated cell set of the valid ``keys`` (every cell at one of
+    ``offsets`` from an occupied one), capped at D rows, and the dense grid
+    over its bounding box: (dcoords, dvalid, bbox_min, grid, overflow)."""
     gx, gy, gz = grid_shape
     n_cells = gx * gy * gz
-    dev, dt = gmap.mean.device, gmap.mean.dtype
-
-    keys = torch.where(gmap.valid, gmap.keys, voxel.INVALID_KEY)
+    dev = keys.device
     coords = voxel.unpack(keys)
-    # dilated set = occupied voxels + their 6 face neighbors
-    dil = torch.cat([voxel.pack(voxel.shift(coords, off)) for off in voxel.DIRECT7_OFFSETS])
-    dil = torch.where((keys != voxel.INVALID_KEY).repeat(7), dil, voxel.INVALID_KEY)
+    dil = torch.cat([voxel.pack(voxel.shift(coords, off)) for off in offsets])
+    dil = torch.where((keys != voxel.INVALID_KEY).repeat(len(offsets)), dil, voxel.INVALID_KEY)
     dkeys, n_distinct = _unique_sorted(dil, D)
     dvalid = dkeys != voxel.INVALID_KEY
     dcoords = voxel.unpack(dkeys)
@@ -92,6 +91,25 @@ def build_regmap(
     grid = torch.full((n_cells + 1,), D, dtype=torch.int32, device=dev)
     grid[dflat.long()] = rows  # distinct cells; index n_cells is reset below
     grid[n_cells] = D
+    return dcoords, dvalid, bbox_min, grid, overflow
+
+
+def build_regmap(
+    gmap: GaussianMap,
+    grid_shape: tuple = (256, 256, 64),
+    dilated_capacity: Optional[int] = None,
+    aux_payload: Optional[torch.Tensor] = None,
+) -> RegMap:
+    """Registration layout from a finalized GaussianMap; ``aux_payload``
+    (V, 12) fills ``packed_aux`` over the same rows."""
+    V = gmap.capacity
+    D = dilated_capacity or 4 * V
+    dev, dt = gmap.mean.device, gmap.mean.dtype
+
+    keys = torch.where(gmap.valid, gmap.keys, voxel.INVALID_KEY)
+    coords = voxel.unpack(keys)
+    # dilated set = occupied voxels + their 6 face neighbors
+    _, _, bbox_min, grid, overflow = _dilated_grid(keys, voxel.DIRECT7_OFFSETS, D, grid_shape)
 
     # occupied voxel v is neighbor slot j of the dilated cell coords[v] - off_j
     trows = []
@@ -118,6 +136,76 @@ def build_regmap(
         resolution=gmap.resolution, num_valid=gmap.num_valid(), overflow=overflow,
         packed_aux=packed_aux,
     )
+
+
+# the 3 x 3 x 3 cell neighbourhood, in the reference's (meshgrid "ij") order
+KD_OFFSETS = np.stack(
+    np.meshgrid(*([np.arange(-1, 2, dtype=np.int32)] * 3), indexing="ij"), -1
+).reshape(27, 3)
+
+
+def build_regmap_kdtree(
+    gmap: GaussianMap,
+    grid_shape: tuple = (256, 256, 64),
+    dilated_capacity: Optional[int] = None,
+) -> RegMap:
+    """The RegMap of the KDTREE search mode (default D = 6V rows).
+
+    A leaf's centroid lies inside its own voxel, so every leaf within one
+    resolution of a point in cell c sits in c's 3 x 3 x 3 neighbourhood.
+    Each cell of the 27-dilated set holds, in its 7 slots, the occupied
+    leaves of that neighbourhood nearest the cell's centre (a stable sort
+    of the 27 distances: ties keep the neighbourhood order). The gate
+    |tp - mu| <= radius is the pair kernels' (``radius_gate``). Exact while
+    at most 7 leaves fall within the radius."""
+    V = gmap.capacity
+    D = dilated_capacity or 6 * V
+    dev, dt = gmap.mean.device, gmap.mean.dtype
+    n_cells = grid_shape[0] * grid_shape[1] * grid_shape[2]
+
+    keys = torch.where(gmap.valid, gmap.keys, voxel.INVALID_KEY)
+    payload = torch.where(gmap.valid[:, None],
+                          torch.cat([gmap.mean, gmap.icov.reshape(V, 9)], dim=1), 0.0)
+    dcoords, dvalid, bbox_min, grid, overflow = _dilated_grid(keys, KD_OFFSETS, D, grid_shape)
+
+    # occupied-cell grid: cell -> payload row (sentinel V)
+    oflat = _cell_of(voxel.unpack(keys), gmap.valid, bbox_min, grid_shape)
+    occgrid = torch.full((n_cells + 1,), V, dtype=torch.int32, device=dev)
+    occgrid[oflat.long()] = torch.where(gmap.valid, torch.arange(V, dtype=torch.int32, device=dev), V)
+    occgrid[n_cells:].fill_(V)  # a fill: writing a number through an index waits for the device
+
+    # candidate leaves per dilated cell: its 27-neighbourhood's occupants
+    cand = torch.stack([
+        occgrid[_cell_of(voxel.shift(dcoords, o), dvalid, bbox_min, grid_shape).long()]
+        for o in KD_OFFSETS
+    ], dim=1).long()  # (D, 27) payload rows, sentinel V
+    mu_table = torch.cat([gmap.mean, gmap.mean.new_zeros((1, 3))])
+    center = (dcoords.to(dt) + 0.5) * gmap.resolution.to(dt) + gmap.origin.to(dt)[None, :]
+    dist2 = torch.sum((mu_table[cand] - center[:, None, :]) ** 2, dim=-1)
+    dist2 = torch.where(cand < V, dist2, torch.inf)
+    order = torch.argsort(dist2, dim=1, stable=True)[:, :7]  # (D, 7) nearest candidates
+    sel = torch.gather(cand, 1, order)
+    sel_ok = sel < V
+
+    pay_table = torch.cat([payload, payload.new_zeros((1, 12))])
+    fields = pay_table[sel]  # (D, 7, 12); the sentinel row V is zero
+    packed = torch.cat([fields.reshape(D, 84), sel_ok.to(dt), fields.new_zeros((D, 5))], dim=1)
+    packed = torch.where(dvalid[:, None], packed, 0.0)
+    packed = torch.cat([packed, packed.new_zeros((1, 96))])
+    return RegMap(
+        packed=packed, grid=grid, bbox_min=bbox_min, origin=gmap.origin,
+        resolution=gmap.resolution, num_valid=gmap.num_valid(), overflow=overflow,
+    )
+
+
+def radius_gate(tp, mu, active_slot, kd_radius):
+    """The KDTREE gate on gathered slots: slot k of point i counts only if
+    |tp_i - mu_ik|^2 <= kd_radius^2 (tp (N, 3), mu (N, 7, 3), active_slot
+    (N, 7)). None or 0 disables it (DIRECT7)."""
+    if kd_radius is None or kd_radius <= 0.0:
+        return active_slot
+    d2 = torch.sum((tp[:, None, :] - mu) ** 2, dim=-1)
+    return active_slot & (d2 <= kd_radius * kd_radius)
 
 
 def empty_regmap(capacity: int, grid_shape: tuple, device, dtype=torch.float32,

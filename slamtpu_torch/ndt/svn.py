@@ -3,7 +3,8 @@ slamtpu/ndt/svn.py, the RegMap shared-gather path).
 
 Per iteration: one row lookup at the particle mean; stage 1 evaluates the
 NDT objective for all K particles in ONE launch of the pair kernel, which
-gathers the rows from the RegMap table itself;
+gathers the rows from the RegMap table itself (and, in the KDTREE search
+mode, gates their slots at the mean pose);
 stage 2 is the K x K SE(3) RBF kernel, the kernel-averaged force and the
 regularized Hessians, batched 6x6 solves; stage 3 retracts the particles.
 Then an optional MAP polish (Newton steps on the NDT score, or on the
@@ -26,7 +27,7 @@ from ..core import linalg, se3
 from ..core.const import constant
 from ..core.se3 import Pose3
 from .constants import gauss_constants
-from .fused_math import rows_objective
+from .fused_math import gate_params, rows_objective
 from .regmap import grid_rows
 
 # particle init sigmas around the prior, tangent order [omega, v]
@@ -41,9 +42,15 @@ class SvnConfig(NamedTuple):
     kernel_h: float = 5.0
     step_size: float = 0.05
     stop_thresh: float = 1e-4
+    # read by the reference's sorted-key objective only: on the RegMap path
+    # DIRECT1 runs DIRECT7, in both packages
+    use_direct1: bool = False
     hess_lambda: float = 1e-6  # per-particle NDT Hessian Tikhonov
     svn_hess_lambda: float = 1e-6  # H~ regularization
     cov_eig_floor: float = 1e-9  # final covariance eigenvalue floor
+    # KDTREE search mode: > 0 gates each slot on its centroid's distance from
+    # the point at the gather pose (pair with build_regmap_kdtree)
+    kd_radius: float = 0.0
     polish_iters: int = 0  # Newton steps from the polish start point
     polish_from: str = "prior"  # "prior" | "mean"
     polish_pre_iters: int = 6  # "mean" start only: NDT steps before aniso
@@ -90,7 +97,8 @@ def svn_align_reg(
     """SVN-NDT on the RegMap layout with the shared gather: each iteration
     looks up the points' rows once at the particle mean and every particle
     reuses them (exact while the particle spread stays inside the DIRECT7
-    window).
+    window). With ``cfg.kd_radius`` > 0 the slots are gated at the mean pose
+    (stage 1) and at each NDT polish step's own pose.
 
     The initial particle draws are ``init_noise`` when given (tests pass in
     the reference's draws), else drawn from ``generator``."""
@@ -99,8 +107,9 @@ def svn_align_reg(
 
     def make_obj(mean_pose):
         rows = grid_rows(points, mask, mean_pose, regmap, grid_shape)
+        gate = gate_params(mean_pose, cfg.kd_radius)
         return lambda pose: rows_objective(ptsT, regmap.packed, rows, pose, d1, d2,
-                                           cfg.hess_lambda)
+                                           cfg.hess_lambda, gate=gate)
 
     polish_make_obj = None
     if cfg.polish_iters > 0 and cfg.polish_objective == "gicp_aniso":

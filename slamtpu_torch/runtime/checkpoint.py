@@ -1,6 +1,5 @@
 """Checkpoint and resume of the apps' state as numpy ``.npz`` files (port of
-slamtpu/runtime/checkpoint.py; the ins_map checkpoint waits for the
-ins_map app).
+slamtpu/runtime/checkpoint.py).
 
 Files cross between the packages in both directions: the port writes the
 reference's keys, names, shapes and dtypes, and adds only
@@ -114,13 +113,33 @@ def save_map_stats(path: str, stats: VoxelStats):
     _save(path, **{k: _np(getattr(stats, k)) for k in VoxelStats._fields})
 
 
-def load_map_stats(path: str, device) -> VoxelStats:
-    """Map statistics on ``device`` (the resolution stays a CPU scalar
-    tensor, as the port keeps it)."""
-    z = _load(path)
+def _stats_of(z: dict, device) -> VoxelStats:
     out = {k: torch.tensor(z[k], device=device) for k in VoxelStats._fields if k != "resolution"}
     out["resolution"] = torch.tensor(z["resolution"], dtype=out["sx"].dtype)
     return VoxelStats(**out)
+
+
+def load_map_stats(path: str, device) -> VoxelStats:
+    """Map statistics on ``device`` (the resolution stays a CPU scalar
+    tensor, as the port keeps it)."""
+    return _stats_of(_load(path), device)
+
+
+# --- ins_map ---
+
+
+def save_ins_map(path: str, stats: VoxelStats, ref_lla):
+    """The ins_map state: the mergeable map statistics and the geodetic
+    reference (the reference's keys, and ``layout``)."""
+    _save(path, **{k: _np(getattr(stats, k)) for k in VoxelStats._fields},
+          ref_lla=np.asarray(ref_lla, np.float64))
+
+
+def load_ins_map(path: str, device):
+    """(map statistics on ``device``, ref_lla (3,) numpy float64) from a file
+    of either package."""
+    z = _load(path)
+    return _stats_of(z, device), np.asarray(z["ref_lla"], np.float64)
 
 
 # --- lo_svn ---

@@ -6,8 +6,9 @@ not have, so run them there from the repository root without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
-chip_smoke.py checks the three kernels (NDT, VGICP, plane-to-plane) at the
-main paths' shapes (N = 65,536). These add, for each of the three, ragged
+chip_smoke.py checks the three kernels (NDT, VGICP, plane-to-plane) and
+the gated NDT and VGICP kernels (the KDTREE search mode) at the main
+paths' shapes (N = 65,536). These add, for each of the three, ragged
 N (below one 32-point tile, not a multiple of it, more tiles than
 persistent blocks), K poses in one launch against K launches, rows
 gathered in the kernel against the same rows pre-gathered, points sharing
@@ -21,6 +22,12 @@ solvers) on the card against the same calls on the CPU: within 1e-10 (the
 same float64 formulas; the factorizations and matrix products of another
 library), the marginal covariance within 1e-8 of the largest entry of
 H^-1.
+
+The gated kernels (B1, B2 with the KDTREE radius gate) are held against
+their plain versions with a radius that cuts slots, ragged N, the
+sentinel row, K = 20 poses around the gather pose (the gate is the gather
+pose's, not each pose's own), and an infinite radius, which must give the
+ungated kernel's sums bit for bit.
 
 The last tests hold what checkpoints and the odom engines need on the
 card: the map build's segment sums repeat bit for bit (a resumed run
@@ -233,6 +240,70 @@ def test_wrapper_rejects_bad_table_and_rows(dev, fn):
         with pytest.raises(ValueError):
             kern(p_ndt, ptsT, tab, idx)
     assert fused_math.LAUNCHES == before
+
+
+def _gate(dev, r, seed=0):
+    """The gate block at a gather pose near the identity."""
+    xi = np.random.default_rng(seed).normal(scale=[0.01, 0.01, 0.02, 0.05, 0.05, 0.05])
+    return fused_math.gate_params(se3.expmap(torch.tensor(xi, dtype=torch.float32, device=dev)), r)
+
+
+def _gated(p_ndt, p_gicp):
+    return [("ndt_pair", fused_math.ndt_pair, fused_math._ndt_pair_plain, p_ndt),
+            ("gicp_pair", fused_math.gicp_pair, fused_math._gicp_pair_plain, p_gicp)]
+
+
+@pytest.mark.parametrize("n", [1, 31, 100, 257, 5000])
+def test_gated_kernels_match_plain(dev, n):
+    ptsT, table, rows, _, _, p_ndt, _, p_gicp = _inputs(n, 20, dev, seed=9)
+    gate = _gate(dev, 1.0)
+    for name, fn, plain, p in _gated(p_ndt, p_gicp):
+        out, ref = fn(p, ptsT, table, rows, gate), plain(p, ptsT, table, rows, gate)
+        assert torch.isfinite(out).all(), name
+        compare(out, ref)
+        if n >= 100:  # the radius cuts slots
+            ungated = plain(p, ptsT, table, rows)
+            assert float(ref[:, 43].sum()) < float(ungated[:, 43].sum()), name
+
+
+def test_gate_is_the_gather_poses(dev):
+    """K = 20 poses around the gather pose in one launch: each pose's sums
+    are those of the gate at the gather pose, not at the pose's own."""
+    ptsT, table, rows, _, _, p_ndt, _, p_gicp = _inputs(20000, 20, dev, seed=10)
+    gate = _gate(dev, 1.0, seed=3)
+    for name, fn, plain, p in _gated(p_ndt, p_gicp):
+        out = fn(p, ptsT, table, rows, gate)
+        compare(out, plain(p, ptsT, table, rows, gate))
+        own = torch.cat([plain(p[k:k + 1], ptsT, table, rows,
+                               fused_math.gate_params(se3.Pose3(p[k, :9].view(3, 3), p[k, 9:12]), 1.0))
+                         for k in range(20)])
+        assert (out[:, 43] - own[:, 43]).abs().max() > 20, name  # another set of slots
+
+
+def test_gated_sentinel_rows_and_infinite_radius(dev):
+    ptsT, table, rows, _, _, p_ndt, _, p_gicp = _inputs(5000, 3, dev, seed=11)
+    sentinel = torch.full_like(rows, table.shape[0] - 1)
+    wide = _gate(dev, 1.0)
+    wide[12] = float("inf")
+    for name, fn, _, p in _gated(p_ndt, p_gicp):
+        assert (fn(p, ptsT, table, sentinel, _gate(dev, 1.0)) == 0).all(), name
+        # a gate that cuts nothing leaves the ungated kernel's arithmetic
+        assert torch.equal(fn(p, ptsT, table, rows, wide), fn(p, ptsT, table, rows)), name
+
+
+def test_gated_kernels_count_launches_and_check_the_gate(dev):
+    ptsT, table, rows, _, _, p_ndt, _, p_gicp = _inputs(3000, 2, dev, seed=12)
+    gate = _gate(dev, 1.0)
+    for name, fn, _, p in _gated(p_ndt, p_gicp):
+        before = dict(fused_math.LAUNCHES)
+        a = fn(p, ptsT, table, rows, gate)
+        assert torch.equal(a, fn(p, ptsT, table, rows, gate))
+        assert fused_math.LAUNCHES == dict(before, **{f"{name}_gated": before[f"{name}_gated"] + 2})
+        for bad in (gate.cpu(), gate.double(), gate[:15].contiguous(),
+                    torch.zeros(17, device=dev)[1:]):  # the last is 4 bytes off alignment
+            with pytest.raises(ValueError):
+                fn(p, ptsT, table, rows, bad)
+        assert fused_math.LAUNCHES == dict(before, **{f"{name}_gated": before[f"{name}_gated"] + 2})
 
 
 def _imu_inputs(seed, n=11):

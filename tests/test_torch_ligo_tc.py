@@ -20,7 +20,13 @@ pair kernel's plain version with ``fused_inner_iters=1`` (and
     within 5e-4 m of each other, iterations within 1, every statistic and
     covariance finite. The port's app as it ships (the reference's fused
     contract): ATE within 5e-4 m of the reference's.
-(c) What the port does not carry raises.
+(c) The search modes. DIRECT1 runs DIRECT7 in both packages: the port's
+    DIRECT1 run equals its DIRECT7 run bit for bit and the reference's
+    DIRECT1 run at the bounds of (b). KDTREE runs in neither: the
+    reference fails at its first registration (its rebuild ``lax.cond``
+    meets a DIRECT7 map and a cache of KDTREE shape), the port at
+    construction.
+(d) What the port does not carry raises.
 """
 import functools
 
@@ -182,8 +188,32 @@ def test_run_replay_default_contract(replay, reference_runs, every):
     assert all(np.isfinite(np.asarray(e.pose.trans)).all() for e in tt)
 
 
-@pytest.mark.parametrize("change", [dict(use_regmap=False), dict(search_method="KDTREE"),
-                                    dict(search_method="DIRECT1")])
+def test_direct1_runs_direct7(replay, reference_runs, monkeypatch):
+    path, gt = replay
+    jcfg, tcfg = configs(1, search_method="DIRECT1")
+    jt = jligo.LigoTcApp(jcfg, window=WINDOW).run_replay(path)
+    monkeypatch.setattr(tligo, "_ligo_step", functools.partial(tligo._ligo_step, final_eval=True))
+    tt = tligo.LigoTcApp(tcfg, "cpu", window=WINDOW).run_replay(path)
+    t7 = tligo.LigoTcApp(configs(1)[1], "cpu", window=WINDOW).run_replay(path)
+    assert len(tt) == len(t7) == len(jt) == N_SWEEPS - 1
+    for a, b, c in zip(tt, t7, jt):
+        np.testing.assert_array_equal(a.pose.trans, b.pose.trans)
+        np.testing.assert_array_equal(a.pose.rot, b.pose.rot)
+        _assert_pose_close(a.pose.rot, a.pose.trans, c.pose.rot, c.pose.trans)
+    assert abs(_ate(tt, gt) - _ate(jt, gt)) < 5e-4
+
+
+@pytest.mark.parametrize("field", ["search_method", "svn_search_method"])
+def test_kdtree_fails_in_both_packages(replay, field):
+    path, _ = replay
+    jcfg, tcfg = configs(1, **{field: "KDTREE"})
+    with pytest.raises(TypeError, match="shapes do not match"):
+        jligo.LigoTcApp(jcfg, window=WINDOW).run_replay(path, max_keyframes=2)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tligo.LigoTcApp(tcfg, "cpu", window=WINDOW)
+
+
+@pytest.mark.parametrize("change", [dict(use_regmap=False)])
 def test_unported_options_raise(change):
     _, tcfg = configs(1, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

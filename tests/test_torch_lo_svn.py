@@ -8,6 +8,11 @@
     on the draws (the polish starts at the prior), so the two apps draw
     independently. Also with the polish's voxel source covariances
     (``svn_src_cov="voxel"``, the sort-based ``source_point_covariances``).
+(c) The search modes: ``run_replay`` with ``svn_search_method="KDTREE"``
+    (the KDTREE RegMap, the gated NDT pair kernel, the polish on the NDT
+    score) against the reference at the bounds of (b); with "DIRECT1",
+    which runs DIRECT7 in both packages, the port equals its DIRECT7 run
+    bit for bit and the reference's DIRECT1 run at the bounds of (b).
 
 Tolerances: rotation 1e-4 rad, iteration counts equal, covariance
 diagonal rtol 1e-2 (sample covariance of a few particles), and published
@@ -184,3 +189,39 @@ def test_run_replay_voxel_source_covariances_matches_reference(replay):
     for a, b in zip(jt, tt):
         _assert_pose_close(b.pose.rot, b.pose.trans, a.pose.rot, a.pose.trans)
     assert "src_covariances" in tapp.device_timer.summary()
+
+
+def _search_mode_runs(replay, method):
+    import dataclasses
+
+    path, gt, jcfg, tcfg = replay
+    jcfg, tcfg = (dataclasses.replace(c, register=dataclasses.replace(c.register, svn_search_method=method))
+                  for c in (jcfg, tcfg))
+    jt = JApp(jcfg).run_replay(path)
+    tapp = tlo.LoSvnApp(tcfg, "cpu")
+    tt = tapp.run_replay(path)
+    assert len(tt) == len(jt) == N_SWEEPS - 1
+    for a, b in zip(jt, tt):
+        _assert_pose_close(b.pose.rot, b.pose.trans, a.pose.rot, a.pose.trans)
+    gtp = [Pose3(np.asarray(R), np.asarray(p)) for R, p in gt[1:]]
+    ate = [ate_rmse([np_between(traj[0].pose, e.pose) for e in traj],
+                    [np_between(gtp[0], g) for g in gtp[: len(traj)]]) for traj in (jt, tt)]
+    assert abs(ate[1] - ate[0]) < 5e-4 and ate[0] < 0.01
+    return tapp, tt
+
+
+def test_run_replay_kdtree_matches_reference(replay):
+    tapp, _ = _search_mode_runs(replay, "KDTREE")
+    assert tapp.svn_cfg.kd_radius == 2.0 and tapp.svn_cfg.polish_objective == "ndt"
+    assert tapp._cadence.regmap.packed_aux is None
+    assert tapp._cadence.regmap.packed.shape[0] == 6 * REGISTER["map_capacity"] + 1
+
+
+def test_run_replay_direct1_runs_direct7(replay):
+    path, _, _, tcfg = replay
+    _, tt = _search_mode_runs(replay, "DIRECT1")
+    t7 = tlo.LoSvnApp(tcfg, "cpu").run_replay(path)
+    for a, b in zip(tt, t7):
+        np.testing.assert_array_equal(a.pose.trans, b.pose.trans)
+        np.testing.assert_array_equal(a.pose.rot, b.pose.rot)
+        np.testing.assert_array_equal(a.covariance, b.covariance)

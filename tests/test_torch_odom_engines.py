@@ -8,7 +8,7 @@ draws), held as tests/test_torch_odom_ndt.py holds the others (pose 1e-4 m
 / 1e-4 rad, iterations within 1, LiDAR covariance diagonal rtol 1e-2),
 and ``run_replay`` of both packages (per-keyframe poses within 5e-4 m,
 ATEs within 5e-4 m; SVNNDT with the reference's per-keyframe draws
-injected). The anisotropic engine runs with the stencil source
+injected). SVNNDT also runs in the KDTREE search mode. The anisotropic engine runs with the stencil source
 covariances (the default) and with the voxel ones.
 """
 import dataclasses
@@ -36,6 +36,11 @@ ENGINES = {
     "SVNNDT": dict(method="SVNNDT", svn_resolution=np.float32(1.0), svn_particles=6,
                    svn_max_iterations=8, svn_kernel_h=1.0, svn_step_size=1.0),
     "NDT_OMP_MULTIRES": dict(method="NDT_OMP_MULTIRES"),
+    # the KDTREE search mode: the KDTREE RegMap and the NDT pair kernel gated
+    # at the particle mean
+    "SVNNDT_KDTREE": dict(method="SVNNDT", svn_resolution=np.float32(1.0), svn_particles=6,
+                          svn_max_iterations=8, svn_kernel_h=1.0, svn_step_size=1.0,
+                          svn_search_method="KDTREE"),
 }
 SEED_KEY = 1234  # the reference app's PRNGKey of the SVNNDT engine
 
@@ -89,7 +94,7 @@ def test_one_keyframe_step_matches(reference_runs, engine):
     assert int(carry["n"]) == WINDOW and kwargs["method"] == ENGINES[engine]["method"]
     jnewton, capacity, min_points, grid, max_td, max_rd = args
     extra = {}
-    if engine == "SVNNDT":
+    if engine.startswith("SVNNDT"):
         K = kwargs["svn_cfg"].num_particles
         extra = dict(svn_cfg=interop.svn_config_from_fields(kwargs["svn_cfg"]._asdict()),
                      init_noise=torch.as_tensor(np.array(jax.random.normal(kwargs["key"], (K, 6),
@@ -122,7 +127,7 @@ def test_run_replay_matches_reference(replay, reference_runs, engine):  # noqa: 
     _, tcfg = configs(engine)
     jt, jrecs, _ = reference_runs[engine]
     tapp = todom.OdomNdtApp(tcfg, "cpu", window=WINDOW)
-    if engine == "SVNNDT":
+    if engine.startswith("SVNNDT"):
         draws = reference_draws(tapp.svn_cfg.num_particles)
         tapp._particle_noise = lambda: next(draws)
     tt = tapp.run_replay(path)
@@ -141,7 +146,7 @@ def test_run_replay_matches_reference(replay, reference_runs, engine):  # noqa: 
     assert all(np.isfinite(r.lidar_sigma).all() and np.isfinite(r.optimized_sigma).all() for r in recs)
     stages = set(tapp.device_timer.summary())
     assert stages >= {"project", "deskew", "map_build", "covariance", "smoother"}
-    assert ("svn" in stages) == (engine == "SVNNDT")
+    assert ("svn" in stages) == engine.startswith("SVNNDT")
     assert ("src_covariances" in stages) == engine.startswith("GICP_aniso")
 
 

@@ -23,10 +23,22 @@ its fused driver over the pair kernels' plain versions with
 (c) The same ``run_replay`` of NDT_OMP with the card's segment sums
     (``gaussian_map.segment_sum_scan``) in the port's map build, at the
     bounds of (b).
-(d) The options the port does not carry raise.
+(d) The search modes. NDT_OMP with KDTREE: ``run_replay`` of both
+    packages at the bounds of (b) (the reference's CPU path gates at each
+    step's pose, as the port with one Newton step per lookup). Isotropic
+    GICP with KDTREE: the reference's CPU app path skips the gate, so one
+    registration of the port's app step (``_register_step``, on a map
+    the port builds) is held against the reference's fused Newton in
+    interpret mode on the reference's map: iterations and ``converged``
+    equal, pose within 1e-5 m / 1e-5 rad. DIRECT1 runs DIRECT7 in both
+    packages: the port's DIRECT1 run equals its DIRECT7 run bit for bit
+    and the reference's DIRECT1 run at the bounds of (b).
+(e) The options the port does not carry raise.
 """
 import dataclasses
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -171,10 +183,88 @@ def test_run_replay_with_scan_sums_matches_reference(replay, monkeypatch):
     assert abs(_ate(tt, gt) - _ate(jt, gt)) < 5e-4
 
 
-@pytest.mark.parametrize("change", [
-    dict(search_method="KDTREE"), dict(search_method="DIRECT1"), dict(use_regmap=False),
-    dict(loop_closure=True),
-])
+def _with(cfg, **change):
+    return dataclasses.replace(cfg, register=dataclasses.replace(cfg.register, **change))
+
+
+def _assert_runs_match(path, gt, jt, tt):
+    assert len(tt) == len(jt) == N_SWEEPS - 1
+    for a, b in zip(jt, tt):
+        assert a.frame_id == b.frame_id
+        _assert_pose_close(b.pose.rot, b.pose.trans, a.pose.rot, a.pose.trans)
+    assert abs(_ate(tt, gt) - _ate(jt, gt)) < 5e-4
+    assert _ate(jt, gt) < 0.05
+
+
+def test_ndt_omp_kdtree_run_replay_matches_reference(replay):
+    path, gt = replay
+    jcfg, tcfg = (_with(c, search_method="KDTREE") for c in configs("NDT_OMP"))
+    jt = jodom.OdomNdtApp(jcfg, window=WINDOW).run_replay(path)
+    tapp = todom.OdomNdtApp(tcfg, "cpu", window=WINDOW)
+    assert tapp.newton_cfg.kd_radius == 1.0
+    tt = tapp.run_replay(path)
+    _assert_runs_match(path, gt, jt, tt)
+
+
+def test_gicp_kdtree_step_matches_reference_fused(replay):
+    """The port's GICP registration with the gate against the reference's
+    fused Newton (interpret mode), from the inputs of the port app's last
+    registration."""
+    from slamtpu.core import se3 as jse3
+    from slamtpu.mapping import gaussian_map as jgm
+    from slamtpu.ndt import build_regmap as jbuild_regmap
+    from slamtpu.ndt import gicp_map as jgicp_map
+    from slamtpu.ndt.pallas_math import gicp_align_fused
+
+    path, _ = replay
+    jcfg, tcfg = (_with(c, search_method="KDTREE") for c in configs("GICP"))
+    calls = []
+    real = todom._register_step
+
+    def spy(*args, **kwargs):
+        res = real(*args, **kwargs)
+        calls.append((args, kwargs, res))
+        return res
+
+    todom._register_step = spy
+    try:
+        tapp = todom.OdomNdtApp(tcfg, "cpu", window=WINDOW)
+        tapp.run_replay(path, max_keyframes=3)
+    finally:
+        todom._register_step = real
+    (target, tmask, pts, mask, guess, origin, cfg, capacity, min_points, grid), kwargs, res = calls[-1]
+    assert kwargs["method"] == "GICP" and cfg.kd_radius == 1.0 and kwargs["inner_iters"] == 1
+    gmap = jgm.build_map(jnp.asarray(target.numpy()), jnp.asarray(tmask.numpy()),
+                         jnp.asarray(origin.numpy()), cfg.resolution, capacity=capacity,
+                         min_points_per_voxel=min_points)
+    jreg = jbuild_regmap(jgicp_map(gmap), grid_shape=grid)
+    jnewton_cfg = jodom.OdomNdtApp(jcfg, window=WINDOW).newton_cfg
+    assert jnewton_cfg.kd_radius == cfg.kd_radius
+    ref = jax.jit(gicp_align_fused, static_argnames=("cfg", "grid_shape", "inner_iters", "interpret"))(
+        jnp.asarray(pts.numpy()), jnp.asarray(mask.numpy()), jreg,
+        jse3.Pose3(jnp.asarray(guess.rot.numpy()), jnp.asarray(guess.trans.numpy())), jnewton_cfg, grid,
+        inner_iters=1, interpret=True)
+    assert int(res.iterations) == int(ref.iterations)
+    assert bool(res.converged) == bool(ref.converged)
+    _assert_pose_close(res.pose.rot.numpy(), res.pose.trans.numpy(), np.asarray(ref.pose.rot),
+                       np.asarray(ref.pose.trans), atol_m=1e-5, atol_rad=1e-5)
+    assert int(res.n_contrib) == int(ref.n_contrib)
+
+
+def test_direct1_runs_direct7(replay):
+    path, gt = replay
+    jcfg, tcfg = configs("NDT_OMP")
+    jt = jodom.OdomNdtApp(_with(jcfg, search_method="DIRECT1"), window=WINDOW).run_replay(path)
+    tt = todom.OdomNdtApp(_with(tcfg, search_method="DIRECT1"), "cpu", window=WINDOW).run_replay(path)
+    t7 = todom.OdomNdtApp(tcfg, "cpu", window=WINDOW).run_replay(path)
+    for a, b in zip(tt, t7):
+        np.testing.assert_array_equal(a.pose.trans, b.pose.trans)
+        np.testing.assert_array_equal(a.pose.rot, b.pose.rot)
+        np.testing.assert_array_equal(a.covariance, b.covariance)
+    _assert_runs_match(path, gt, jt, tt)
+
+
+@pytest.mark.parametrize("change", [dict(use_regmap=False), dict(loop_closure=True)])
 def test_unported_engines_raise(change):
     _, tcfg = configs("NDT_OMP")
     change = dict(change)
