@@ -27,7 +27,9 @@
    that the in-kernel one replaces), of the row lookup with the
    plane-to-plane kernel (one polish evaluation), and of the map build's
    largest fixed-order segment sum on a 5-sweep ring against
-   ``index_add_``'s atomic one on the same sorted values.
+   ``index_add_``'s atomic one on the same sorted values, and checks that
+   20 repeats of that sum are equal bit for bit (beside the count of
+   equal repeats of a 1-D float64 ``cumsum`` of the same values).
 4. lo_svn phase: ``LoSvnApp(cfg, "cuda").run_replay`` over a 12-sweep skewed
    replay at the Berlin operating point; checks that the NDT and
    plane-to-plane kernels launched, that every pose is finite and that the
@@ -70,10 +72,31 @@
    ``stats_from_points`` over the same INS-posed sweeps (keys and counts
    exact, sums rtol 1e-5), and that ``finalize_and_export`` writes its
    files.
+10. pose-graph phase: bench.py:43-96's graph in numpy (seed 7, 10,000
+   poses on a 500 m circle, 150 mid-range and 50 circle-closing closures,
+   sqrt-information 100 I, float32) solved by ``fusion.pose_graph.optimize``
+   on the card (8 Gauss-Newton x 60 CG), once to warm up and then 3 chained
+   solves, as bench.py times them; prints the end drift before and after,
+   device ms per solve (CUDA events), host syncs during a solve and peak
+   memory; checks drift before ~6.27 m, after <= 0.10 m, and that two
+   solves of the same graph are equal bit for bit.
+11. loop-closure phase: ``OdomNdtApp(..., loop_closure=True)`` (NDT_OMP at
+   the odom operating point) over a 46-sweep Berlin-shape replay around a
+   1.9 m-radius circle (3 m/s, 4 s a turn; tests/test_e2e.py's loop
+   settings), then ``refine_loop_closures``; checks a verified closure with
+   j - i >= 30, finite poses and ATE after <= max(2 x before, 0.05 m);
+   prints the closures, the verifications and their ms, and the NDT pair
+   kernel's launches inside them. The kernel phase holds that kernel on
+   the verification map (2^14 voxels, grid (128, 128, 32), resolution 2).
+12. command-line phase: ``python -m slamtpu_torch odom_ndt --loop-closure``
+   (``__main__.main``, Berlin preset, ``--device`` default cuda) over the
+   12-sweep replay; checks its files and that its poses are finite.
 Each replay phase prints the ATE, steady-state keyframes/s, iteration
 counts, host syncs per keyframe, per-stage device times and peak memory.
 The kernel phase also holds the NDT pair kernel at K = 1 against a
 5-cloud map at the ligo operating point's capacity (2^16) and grid.
+Importing slamtpu_torch, slamtpu_torch.fusion and slamtpu_torch.__main__
+must leave CUDA uninitialized.
 
 It imports neither JAX nor the JAX package. It exits non-zero, printing no
 result line, when CUDA is unavailable or any check fails. The last line of
@@ -138,6 +161,15 @@ LO_SVN_KDTREE_ATE_BOUND = 0.010
 # ins_map: keyframes merged before the checkpoint, and the prefix of sweeps
 # whose merged statistics are held to one stats_from_points
 INS_MAP_SPLIT, INS_MAP_PREFIX = 6, 3
+# the pose-graph phase (bench.py's posegraph mode): drift before as the JAX
+# package's construction reads it (6.268-6.269 m), the bound after set from
+# the JAX package's float32 CPU solve (0.064 m)
+PG_POSES, PG_DRIFT_BEFORE, PG_DRIFT_BEFORE_TOL, PG_DRIFT_AFTER_BOUND = 10_000, 6.27, 0.05, 0.10
+# the loop-closure phase: tests/test_e2e.py:546-577's circle and settings
+LOOP_SWEEPS, LOOP_SPEED, LOOP_PERIOD_S = 46, 3.0, 4.0
+LOOP_CFG = dict(search_radius=2.0, min_keyframe_gap=30, max_candidates_per_keyframe=1,
+                resolution=2.0, min_contrib_ratio=0.05)
+LOOP_GRID, LOOP_CAPACITY = (128, 128, 32), 1 << 14  # the verification map's
 TIMED_ROUNDS, TIMED_LAUNCHES = 10, 20
 SPIN_CYCLES_PER_S = 2.0e9  # at least the H100's top SM clock (1.98 GHz)
 # kernel vs plain on the same inputs. The pair count may differ by a few in
@@ -264,9 +296,10 @@ def kernel_inputs(torch, replay_path, gt, cfg, dev):
     from slamtpu_torch.apps.common import IngestPipeline, maybe_deskew
     from slamtpu_torch.core import se3
     from slamtpu_torch.core.se3 import Pose3
-    from slamtpu_torch.mapping.gaussian_map import build_map
+    from slamtpu_torch.mapping.gaussian_map import build_map, origin_for
     from slamtpu_torch.ndt import fused_math
     from slamtpu_torch.ndt.constants import gauss_constants
+    from slamtpu_torch.ndt.newton import NewtonConfig
     from slamtpu_torch.ndt.gicp import (gicp_map, gicp_map_aniso, regularize_plane_covariance,
                                         stencil_point_covariances)
     from slamtpu_torch.ndt.regmap import build_regmap, build_regmap_kdtree, grid_rows
@@ -310,6 +343,13 @@ def kernel_inputs(torch, replay_path, gt, cfg, dev):
                             grid_shape=LIGO_GRID)
     scan_l, pose_l = clouds[LIGO_CLOUDS]
     pts, mask = scan_b.points, scan_b.mask
+    # the loop verification's map (fusion.loop_closure.verify_pair): the
+    # sweep at resolution 2 on an origin below its points, 2^14 voxels
+    lres = LOOP_CFG["resolution"]
+    gmap_v = build_map(world_a, scan_a.mask, origin_for(world_a, scan_a.mask, lres), lres,
+                       capacity=LOOP_CAPACITY, min_points_per_voxel=4)
+    regmap_v = build_regmap(gmap_v, grid_shape=LOOP_GRID)
+    d1_v, d2_v, _ = gauss_constants(lres, NewtonConfig().outlier_ratio)
     N = pts.shape[0]
     K = cfg.register.svn_particles
     g = torch.Generator(device=dev)
@@ -325,6 +365,8 @@ def kernel_inputs(torch, replay_path, gt, cfg, dev):
         ptsT_l=scan_l.points.t().contiguous(),
         rows_l=grid_rows(scan_l.points, scan_l.mask, pose_l, regmap_l, LIGO_GRID),
         p_ndt1_l=fused_math.pose_params(Pose3(pose_l.rot[None], pose_l.trans[None]), d1, d2),
+        regmap_v=regmap_v, rows_v=grid_rows(pts, mask, pose_b, regmap_v, LOOP_GRID),
+        p_ndt1_v=fused_math.pose_params(Pose3(pose_b.rot[None], pose_b.trans[None]), d1_v, d2_v),
         rows=grid_rows(pts, mask, pose_b, regmap, GRID),
         rows_g=grid_rows(pts, mask, pose_b, regmap_g, GRID),
         rows_o=grid_rows(pts, mask, pose_b, regmap_o, ODOM_GRID),
@@ -349,7 +391,8 @@ def kernel_inputs(torch, replay_path, gt, cfg, dev):
     )
     log(f"kernel phase: N={N} points, {int(scan_b.num_points)} kept, "
         f"{int(gmap.num_valid())} map voxels, overflow {int(regmap.overflow)}; ligo map "
-        f"{int(regmap_l.num_valid)} voxels from {LIGO_CLOUDS} sweeps, overflow {int(regmap_l.overflow)}")
+        f"{int(regmap_l.num_valid)} voxels from {LIGO_CLOUDS} sweeps, overflow {int(regmap_l.overflow)}; "
+        f"loop-verification map {int(regmap_v.num_valid)} voxels, overflow {int(regmap_v.overflow)}")
     return inp
 
 
@@ -440,6 +483,7 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
     packed_oa, rows_oa = inp["regmap_oa"].packed, inp["rows_oa"]
     rows, rows_g, rows_o, rows_l = inp["rows"], inp["rows_g"], inp["rows_o"], inp["rows_l"]
     ptsT_l, p_ndt1_l = inp["ptsT_l"], inp["p_ndt1_l"]
+    packed_v, rows_v, p_ndt1_v = inp["regmap_v"].packed, inp["rows_v"], inp["p_ndt1_v"]
     packed_k, rows_k, gate = inp["regmap_k"].packed, inp["rows_k"], inp["gate"]
     packed_kg, rows_kg = inp["regmap_kg"].packed, inp["rows_kg"]
 
@@ -480,6 +524,10 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
          lambda: fused_math.ndt_pair(p_ndt1_l, ptsT_l, packed_l, rows_l),
          lambda: fused_math._ndt_pair_plain(p_ndt1_l, ptsT_l, packed_l, rows_l),
          (packed_l, rows_l), b1),
+        ("ndt_pair", "K=1, loop-verification map", 1,
+         lambda: fused_math.ndt_pair(p_ndt1_v, ptsT, packed_v, rows_v),
+         lambda: fused_math._ndt_pair_plain(p_ndt1_v, ptsT, packed_v, rows_v),
+         (packed_v, rows_v), b1),
         ("gicp_pair", "K=1", 1, lambda: fused_math.gicp_pair(inp["p_gicp"], ptsT, packed_g, rows_g),
          lambda: fused_math._gicp_pair_plain(inp["p_gicp"], ptsT, packed_g, rows_g),
          (packed_g, rows_g),
@@ -578,6 +626,17 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
         lambda: torch.zeros((ring_cap + 1, 9), device=dev).index_add_(0, seg, sxx))
     log(f"[{card}] segment_sum {scan_ms:.4f} ms ({spread[0]}); index_add_ {atomic_ms:.4f} ms "
         f"({spread[1]}) (sum x x^T of {sxx.shape[0]} points into {ring_cap + 1} segments)")
+    # the fixed-order sums repeat bit for bit; a 1-D float cumsum on the card
+    # (a decoupled look-back scan) need not, which is why segment_sum_scan
+    # scans along a dimension of a multi-row tensor
+    first = gaussian_map.segment_sum(sxx, seg, ring_cap + 1)
+    repeats = sum(torch.equal(gaussian_map.segment_sum(sxx, seg, ring_cap + 1), first) for _ in range(20))
+    flat = sxx.t().double().reshape(-1)
+    first_1d = torch.cumsum(flat, 0)
+    repeats_1d = sum(torch.equal(torch.cumsum(flat, 0), first_1d) for _ in range(20))
+    log(f"[{card}] segment_sum repeated 20 times: {repeats} equal to the first bit for bit; a 1-D float64 "
+        f"cumsum of the same values: {repeats_1d} of 20")
+    assert repeats == 20, repeats
     # one entry per kernel, from its first case; its other cases under "cases"
     entries = []
     for m in measured:
@@ -800,6 +859,212 @@ def ins_map_phase(torch, replay_path, cfg, dev, card):
         f"error / (rtol 1e-5 + 1e-6 of the largest) {errs}")
 
 
+def sync_sites(caught) -> Counter:
+    """Host waits for the device among caught warnings, by source line."""
+    return Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught if "synchroniz" in str(w.message))
+
+
+def posegraph_inputs(n_poses: int, seed: int = 7):
+    """bench.py:43-96's pose graph in numpy: a 500 m circle (float64 closed
+    forms), the odometry relatives perturbed by a float32 retract (bench.py's
+    runs in JAX's default float32) and chained in float64 for the initial
+    poses, 150 mid-range and 50
+    circle-closing closures at their true relatives, sqrt-information 100 I.
+    Returns (init (R, t), gt (R, t), i, j, rel (R, t), sqrt_info)."""
+    import numpy as np
+    import torch
+
+    from slamtpu_torch.core import se3
+    from slamtpu_torch.core.se3 import Pose3
+
+    rng = np.random.default_rng(seed)
+    yaw = 2 * np.pi * np.arange(n_poses) / n_poses
+    gt_t = np.stack([500.0 * np.sin(yaw), 500.0 * (1 - np.cos(yaw)), np.zeros(n_poses)], -1)
+    cy, sy, z, o = np.cos(yaw), np.sin(yaw), np.zeros(n_poses), np.ones(n_poses)
+    gt_R = np.stack([np.stack([cy, -sy, z], -1), np.stack([sy, cy, z], -1), np.stack([z, z, o], -1)], 1)
+    rel_R = np.einsum("nji,njk->nik", gt_R[:-1], gt_R[1:])
+    rel_t = np.einsum("nji,nj->ni", gt_R[:-1], gt_t[1:] - gt_t[:-1])
+    noise = rng.normal(size=(n_poses - 1, 6)) * np.array([1e-4] * 3 + [3e-3] * 3)
+    f32 = torch.float32
+    rel = se3.retract(Pose3(torch.as_tensor(rel_R, dtype=f32), torch.as_tensor(rel_t, dtype=f32)),
+                      torch.as_tensor(noise, dtype=f32))
+    rr, rt = rel.rot.double().numpy(), rel.trans.double().numpy()
+    init_R, init_t = np.empty_like(gt_R), np.empty_like(gt_t)
+    init_R[0], init_t[0] = gt_R[0], gt_t[0]
+    for k in range(n_poses - 1):
+        init_t[k + 1] = init_t[k] + init_R[k] @ rt[k]
+        init_R[k + 1] = init_R[k] @ rr[k]
+    li_mid = rng.integers(0, n_poses - 1000, 150)
+    lj_mid = li_mid + rng.integers(500, 999, 150)
+    li_end = rng.integers(0, 50, 50)
+    lj_end = n_poses - 50 + rng.integers(0, 50, 50)
+    li, lj = np.concatenate([li_mid, li_end]), np.concatenate([lj_mid, lj_end])
+    lr_R = np.einsum("nji,njk->nik", gt_R[li], gt_R[lj])
+    lr_t = np.einsum("nji,nj->ni", gt_R[li], gt_t[lj] - gt_t[li])
+    i = np.concatenate([np.arange(n_poses - 1), li])
+    j = np.concatenate([np.arange(1, n_poses), lj])
+    rel_all = (np.concatenate([rr, lr_R]), np.concatenate([rt, lr_t]))
+    return (init_R, init_t), (gt_R, gt_t), i, j, rel_all, np.tile(100.0 * np.eye(6), (len(i), 1, 1))
+
+
+def posegraph_phase(torch, dev, card):
+    """The 10k-pose graph on the card, as bench.py runs it: warm-up, then 3
+    chained solves timed by CUDA events; a repeat solve bit for bit; host
+    syncs during one solve. Returns the phase's numbers."""
+    import numpy as np
+
+    from slamtpu_torch.core.se3 import Pose3
+    from slamtpu_torch.fusion import pose_graph as pg
+
+    init, gt, i, j, rel, si = posegraph_inputs(PG_POSES)
+    f32 = torch.float32
+
+    def t(a, dtype=f32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    graph = pg.make_graph(Pose3(t(init[0]), t(init[1])), t(i, torch.int32), t(j, torch.int32),
+                          Pose3(t(rel[0]), t(rel[1])), t(si))
+    cfg = pg.PoseGraphConfig(gn_iterations=8, cg_iterations=60)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = pg.optimize(graph, cfg)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            again = pg.optimize(graph, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sync_sites(caught)
+    torch.cuda.synchronize()
+    assert torch.equal(again.poses.rot, first.poses.rot) and torch.equal(again.poses.trans, first.poses.trans), \
+        "two pose-graph solves of the same graph differ"
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    g = graph
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(3):  # chained: each solve re-linearized at the previous solution
+        res = pg.optimize(g, cfg)
+        g = g._replace(poses=res.poses)
+    end.record()
+    host_s = time.perf_counter() - t0
+    end.synchronize()
+    ms = start.elapsed_time(end) / 3
+    gt_end = np.asarray(gt[1][-1], np.float32)
+    before = float(np.linalg.norm(np.asarray(init[1][-1], np.float32) - gt_end))
+    after = float(np.linalg.norm(res.poses.trans[-1].cpu().numpy() - gt_end))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"[{card}] pose graph: {PG_POSES} poses, {len(i)} factors, 8 GN x 60 CG, float32: end drift "
+        f"{before:.6f} m before, {after:.6f} m after 3 chained solves; {ms:.3f} ms a solve (CUDA events; "
+        f"host {1e3 * host_s / 3:.3f} ms to queue each); first solve {warm_s:.3f} s; host syncs in a solve "
+        f"{sum(syncs.values())} {dict(syncs)}; repeat solve equal bit for bit; peak device memory {peak:.1f} MiB")
+    assert abs(before - PG_DRIFT_BEFORE) <= PG_DRIFT_BEFORE_TOL, before
+    assert np.isfinite(after) and after <= PG_DRIFT_AFTER_BOUND, after
+    return dict(poses=PG_POSES, factors=len(i), drift_before_m=before, drift_after_m=after, ms_per_solve=ms,
+                host_syncs=sum(syncs.values()), peak_mib=peak)
+
+
+def loop_phase(torch, cfg, tconfig, dev, card, tmp):
+    """odom NDT_OMP with loop closure over a 46-sweep Berlin-shape circle
+    replay, then the pose-graph refinement. Returns the launch counts."""
+    import numpy as np
+
+    import simulator_np
+    from slamtpu_torch.apps.common import ate_rmse, np_between
+    from slamtpu_torch.apps.odom_ndt import OdomNdtApp
+    from slamtpu_torch.core.se3 import Pose3
+    from slamtpu_torch.fusion.loop_closure import LoopClosureConfig
+    from slamtpu_torch.ndt import fused_math
+
+    path = os.path.join(tmp, "loop.rpl")
+    t0 = time.perf_counter()
+    gt = simulator_np.simulate_replay(path, cfg.meta, cfg.lidar, n_sweeps=LOOP_SWEEPS, skewed=True,
+                                      traj=simulator_np.ArcTrajectory(v=LOOP_SPEED,
+                                                                      yaw_rate=2 * np.pi / LOOP_PERIOD_S))
+    log(f"simulated {LOOP_SWEEPS} skewed sweeps around the circle in {time.perf_counter() - t0:.1f} s")
+    app = OdomNdtApp(odom_cfg(tconfig, cfg, "NDT_OMP"), dev, window=6, loop_closure=True,
+                     loop_cfg=LoopClosureConfig(**LOOP_CFG))
+    det = app._detector
+    verify, in_verify = det.verify_pair, Counter()
+
+    def counted(*a, **kw):  # the NDT pair kernel's launches inside the verifications
+        before = dict(fused_math.LAUNCHES)
+        try:
+            return verify(*a, **kw)
+        finally:
+            in_verify.update({k: fused_math.LAUNCHES[k] - before[k] for k in before})
+
+    det.verify_pair = counted
+    torch.cuda.reset_peak_memory_stats()
+    for k in fused_math.LAUNCHES:
+        fused_math.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    traj = app.run_replay(path)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fused_math.LAUNCHES)
+    gtp = [Pose3(np.asarray(R), np.asarray(p)) for R, p in gt[1:]]
+
+    def ate():
+        return ate_rmse([np_between(traj[0].pose, e.pose) for e in traj],
+                        [np_between(gtp[0], g) for g in gtp[: len(traj)]])
+
+    ate_before = ate()
+    t0 = time.perf_counter()
+    _, closures = app.refine_loop_closures()
+    refine_s = time.perf_counter() - t0
+    ate_after = ate()
+    pairs = [(c.i, c.j) for c in closures]
+    n_ver = len(det.verify_ms)
+    log(f"[{card}] odom loop closure: {len(traj)} keyframes in {wall:.3f} s; closures {pairs}; "
+        f"{n_ver} verifications, median {statistics.median(det.verify_ms) if n_ver else float('nan'):.3f} ms "
+        f"(host clock, each ends in its one read; range {min(det.verify_ms, default=0):.3f}.."
+        f"{max(det.verify_ms, default=0):.3f}); NDT pair kernel launches in them {in_verify['ndt_pair']} "
+        f"({in_verify['ndt_pair'] / max(n_ver, 1):.1f} a verification), in the run {launches}; "
+        f"ATE {ate_before:.6f} m before, {ate_after:.6f} m after refine_loop_closures ({refine_s:.3f} s); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    assert len(traj) == LOOP_SWEEPS - 1, len(traj)
+    assert any(j - i >= LOOP_CFG["min_keyframe_gap"] for i, j in pairs), pairs
+    assert in_verify["ndt_pair"] > 0, in_verify
+    for e in traj:
+        assert np.isfinite(e.pose.rot).all() and np.isfinite(e.pose.trans).all()
+    assert ate_after <= max(2.0 * ate_before, 0.05), (ate_before, ate_after)
+    return launches
+
+
+def cli_phase(torch, replay_path, card, tmp):
+    """``python -m slamtpu_torch odom_ndt --loop-closure`` on the card."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from slamtpu_torch.__main__ import main as cli_main
+    from slamtpu_torch.ndt import fused_math
+    from slamtpu_torch.runtime.checkpoint import load_trajectory
+
+    out = os.path.join(tmp, "cli_out")
+    for k in fused_math.LAUNCHES:
+        fused_math.LAUNCHES[k] = 0
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = cli_main(["odom_ndt", "--replay", replay_path, "--loop-closure", "--out", out])
+    wall = time.perf_counter() - t0
+    files = sorted(os.listdir(out))
+    _, poses, _ = load_trajectory(os.path.join(out, "trajectory.npz"))
+    said = printed.getvalue().strip().splitlines()
+    log(f"[{card}] command line odom_ndt --loop-closure: rc {rc} in {wall:.3f} s; files {files}; "
+        f"{len(poses)} poses; launches {dict(fused_math.LAUNCHES)}; it printed {said}")
+    assert rc == 0 and {"trajectory.tum", "trajectory.npz", "keyframe_stats.csv"} <= set(files), files
+    assert poses and all(np.isfinite(p.rot).all() and np.isfinite(p.trans).all() for p in poses)
+    assert any(line.startswith("loop closures: ") for line in said), said
+    assert fused_math.LAUNCHES["ndt_pair"] > 0
+    return dict(fused_math.LAUNCHES)
+
+
 def main():
     import dataclasses
 
@@ -812,6 +1077,10 @@ def main():
     sys.path.insert(0, str(ROOT / "tests"))
     import simulator_np
     import slamtpu_torch  # noqa: F401  (sets the float32 matmul policy)
+    import slamtpu_torch.__main__  # noqa: F401
+    import slamtpu_torch.fusion  # noqa: F401
+
+    assert not torch.cuda.is_initialized(), "importing the port started a CUDA context"
     from slamtpu_torch import cuda_build
     from slamtpu_torch.apps.ligo_tc import LigoTcApp
     from slamtpu_torch.apps.lo_svn import LoSvnApp
@@ -866,6 +1135,10 @@ def main():
             for k, v in counts.items():
                 launches[k] += v
         ins_map_phase(torch, path, cfg, dev, card)
+        for counts in (loop_phase(torch, cfg, tconfig, dev, card, tmp), cli_phase(torch, path, card, tmp)):
+            for k, v in counts.items():
+                launches[k] += v
+    posegraph_phase(torch, dev, card)
     for e in entries:
         e["launches"] = launches[e["name"]]
     log(card)

@@ -1,6 +1,6 @@
 """Shared app plumbing: replay ingest, INS pose seeding, the RegMap
-rebuild cadence and the search-mode switch (port of slamtpu/apps/common.py,
-the parts the ported apps use).
+rebuild cadence, the search-mode switch and the live viewer's hook (port
+of slamtpu/apps/common.py, the parts the ported apps use).
 
 Packets decode on the host (numpy + the native decoders), sync with the
 INS stream, and each sweep reaches the device as one packed buffer.
@@ -207,6 +207,46 @@ class MapRebuildCadence:
         self.force_next = False
         self._idx += 1
         return rebuild
+
+
+class VizHook:
+    """Optional live-viewer attachment (``--viz``): each keyframe's scan,
+    stride-subsampled and read to the host in one copy, posed into the world
+    with the published pose and pushed to a ``runtime.viewer.LiveViewer``
+    (which owns the sliding window), with the trajectory and, when given,
+    the raw INS pose beside it. The apps call it only when their ``viz`` is
+    set, so the default keyframe path reads nothing for it."""
+
+    def __init__(self, viewer, stride: int = 8):
+        self.viewer = viewer
+        self.stride = max(int(stride), 1)
+
+    def subsample(self, scan) -> np.ndarray:
+        """Host body-frame points of a ScanBuffer's kept rows at the stride:
+        (M, 4) with the reflectivity as the intensity column (the viewer
+        colors by it, as pipeline.cpp:919 does), or (M, 3) for a buffer
+        without reflectivity."""
+        s = self.stride
+        cols = [scan.points[::s].to(torch.float32), scan.mask[::s, None].to(torch.float32)]
+        if getattr(scan, "reflectivity", None) is not None:
+            cols.append(scan.reflectivity[::s, None].to(torch.float32))
+        host = torch.cat(cols, dim=1).cpu().numpy()
+        return np.delete(host, 3, axis=1)[host[:, 3] > 0.5]
+
+    def push(self, body_pts: Optional[np.ndarray], pose, frame_id: int, ins_pose=None) -> None:
+        """Pose a subsampled cloud into the world and feed the viewer; with
+        ``ins_pose`` the INS trajectory renders beside the optimized one
+        (red vs green, pipeline.cpp:862-864)."""
+        if body_pts is None:
+            return
+        body_pts = np.asarray(body_pts)
+        inten = None
+        if body_pts.ndim == 2 and body_pts.shape[1] == 4:
+            body_pts, inten = body_pts[:, :3], body_pts[:, 3]
+        R = np.asarray(pose.rot, np.float64)
+        t = np.asarray(pose.trans, np.float64)
+        self.viewer.push_cloud(body_pts @ R.T + t, frame_id, intensity=inten)
+        self.viewer.push_pose(t, ins_xyz=None if ins_pose is None else np.asarray(ins_pose.trans, np.float64))
 
 
 @dataclasses.dataclass

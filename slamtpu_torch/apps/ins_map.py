@@ -66,6 +66,7 @@ class InsMapApp:
         self.out_of_range_points = 0  # points beyond the packed-key extent
         self._oor_pending: list = []  # device counts not read yet
         self.device_timer = DeviceStageTimer(self.device)  # per-stage device spans
+        self.viz = None  # Optional[common.VizHook], set by the command line's --viz
         self.process_end_s: List[float] = []  # host clock as each process() returns
 
     @property
@@ -99,6 +100,8 @@ class InsMapApp:
         self._oor_pending.append(oor)
         if len(self._oor_pending) >= OOR_READ_EVERY:
             self._drain_oor(synced.scan.frame_id)
+        if self.viz is not None:
+            self.viz.push(self.viz.subsample(scan), pose, synced.scan.frame_id)
         self.trajectory.append(TrajectoryEntry(synced.t_end, synced.scan.frame_id, pose, pose))
         self.process_end_s.append(time.perf_counter())
 

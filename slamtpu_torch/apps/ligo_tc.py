@@ -159,6 +159,7 @@ class LigoTcApp:
         self.grid_shape = tuple(reg.reg_grid_shape)
         self.trajectory: List[TrajectoryEntry] = []
         self.stats = StatsArchive()
+        self.viz = None  # Optional[common.VizHook], set by the command line's --viz
         self.timer = StageTimer()  # host spans
         self.device_timer = DeviceStageTimer(self.device)  # per-stage device spans
         self.process_end_s: List[float] = []  # host clock as each process() returns
@@ -334,6 +335,8 @@ class LigoTcApp:
             # _fuse writes the optimized states back into self._win
             pose_opt, cov_opt = self._fuse()
         self._insert_keyframe(scan.points, scan.mask, entry)  # body frame; _ligo_step poses it
+        if self.viz is not None:
+            self.viz.push(self.viz.subsample(scan), pose_opt, synced.scan.frame_id, ins_pose=ins_pose)
         self.trajectory.append(TrajectoryEntry(synced.t_end, synced.scan.frame_id, pose_opt,
                                                ins_pose, cov_opt))
         self.stats.add(KeyFrameStats(
@@ -368,6 +371,8 @@ class LigoTcApp:
                      ins_vel=vel_ned, pim=None, rel=None, rel_cov=None)
         self._insert_keyframe(scan.points, scan.mask, first)
         self._win = [first]
+        if self.viz is not None:
+            self.viz.push(self.viz.subsample(scan), ins_np, synced.scan.frame_id, ins_pose=ins_np)
         self.trajectory.append(TrajectoryEntry(synced.t_end, synced.scan.frame_id, ins_np, ins_np))
 
     def _fuse(self):

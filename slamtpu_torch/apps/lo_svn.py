@@ -193,6 +193,7 @@ class LoSvnApp:
         self._trajectory: List[TrajectoryEntry] = []
         self._stats_archive = StatsArchive()
         self._pending: List[tuple] = []  # keyframes whose results are on the device
+        self.viz = None  # Optional[common.VizHook], set by the command line's --viz
         self._ovf_warned = False
         self._n_keyframes = 0
         self.timer = StageTimer()  # host spans
@@ -245,9 +246,11 @@ class LoSvnApp:
                 self._ovf_warned = True
                 log.warning("RegMap truncated %d dilated cells (capacity/grid too small) — "
                             "raise map_capacity or reg_grid_shape", ovf)
-        for synced, ins_pose, dt_ms, res in pending:
+        for synced, ins_pose, dt_ms, res, viz_pts in pending:
             published = Pose3(_host(res.pose.rot).astype(np.float64),
                               _host(res.pose.trans).astype(np.float64))
+            if self.viz is not None:
+                self.viz.push(viz_pts, published, synced.scan.frame_id, ins_pose=ins_pose)
             self._record(synced, int(res.num_points), published, ins_pose,
                          _host(res.covariance).astype(np.float64), int(res.iterations),
                          bool(res.converged), float(res.score), dt_ms)
@@ -295,6 +298,11 @@ class LoSvnApp:
         init_noise = torch.randn((self.svn_cfg.num_particles, 6), generator=self.generator,
                                  device=self.device)
         reg = self.cfg.register
+        viz_pts = None
+        if self.viz is not None:
+            # the step projects inside; the viewer's scan is projected beside it
+            scan_v = maybe_deskew(self.ingest.project(synced), synced, self._ref_lla, self.cfg.deskew)
+            viz_pts = self.viz.subsample(scan_v)
         with self.timer.span("svn_step"):
             packed = self.ingest.pack(synced)
             self._cadence.regmap, res = _lo_svn_step_packed(
@@ -307,7 +315,7 @@ class LoSvnApp:
             )
         self._kf_head = (self._kf_head + 1) % int(reg.keyframe_window)
         self._n_keyframes += 1
-        self._pending.append((synced, ins_pose, self.timer.last_ms("svn_step"), res))
+        self._pending.append((synced, ins_pose, self.timer.last_ms("svn_step"), res, viz_pts))
         if len(self._pending) >= 64:  # bound the in-flight queue
             self.flush()
         self.process_end_s.append(time.perf_counter())
@@ -328,6 +336,8 @@ class LoSvnApp:
         self._kf_mask[self._kf_head] = scan.mask
         self._kf_head = (self._kf_head + 1) % W
         self._n_keyframes += 1
+        if self.viz is not None:
+            self.viz.push(self.viz.subsample(scan), ins_pose, synced.scan.frame_id, ins_pose=ins_pose)
         self._record(synced, int(scan.num_points), ins_pose, ins_pose, None, 0, True, 0.0, 0.0)
 
     def _record(self, synced, num_points, pose, ins_pose, cov, iters, converged, score,

@@ -25,10 +25,18 @@ pair kernel, and isotropic GICP gates the VGICP pair kernel over its
 DIRECT7 ``gicp_map`` table (the reference's fused contract; its XLA path
 skips the gate); SVNNDT takes ``svn_search_method`` the same way.
 Anisotropic GICP and NDT_OMP_MULTIRES ignore the mode. DIRECT1 runs
-DIRECT7 (``common.search_radius``). These raise NotImplementedError: the
-sorted-key path (use_regmap=False; ROADMAP A, "Do not port these") and
-loop closure (ROADMAP A 4). ``save_checkpoint``/``resume_from`` carry
-the window and the host state (``runtime.checkpoint``).
+DIRECT7 (``common.search_radius``). The sorted-key path
+(use_regmap=False; ROADMAP A, "Do not port these") raises
+NotImplementedError. ``save_checkpoint``/``resume_from`` carry the window
+and the host state (``runtime.checkpoint``).
+
+With ``loop_closure=True`` a ``LoopDetector`` takes each keyframe's cloud
+(its own copy, on the device) at its optimized pose as the host reads it,
+two keyframes late (the first at its INS pose), and verifies revisits by
+NDT registration; ``refine_loop_closures()`` then solves the pose graph of
+the odometry chain, the verified closures and the INS priors and rewrites
+the trajectory. Checkpoints do not carry the detector, as in the
+reference: after a resume it starts empty.
 
 Dtypes: registration runs in float32. The window carry (poses, priors,
 between factors, sqrt-information) is float64 on every device: the
@@ -56,6 +64,7 @@ from ..core import se3
 from ..core.se3 import Pose3
 from ..fusion import robust
 from ..fusion.graph import sqrt_info_from_cov
+from ..fusion.loop_closure import LoopClosureConfig, LoopDetector, refine_trajectory
 from ..fusion.smoother import optimize_pose_window, pose_marginal_covariance
 from ..mapping import gaussian_map
 from ..ndt.fused_math import gicp_align_aniso, newton_align_fused
@@ -337,8 +346,6 @@ class OdomNdtApp:
         if not reg.use_regmap:
             raise NotImplementedError("use_regmap=False (the sorted-key objective) is not ported "
                                       "(ROADMAP A, 'Do not port these')")
-        if self.loop_closure:
-            raise NotImplementedError("loop_closure=True is not ported (ROADMAP A 4)")
         self.ingest = IngestPipeline(self.cfg, self.device)
         self.newton_cfg = NewtonConfig(
             resolution=reg.ndt_resolution,
@@ -384,6 +391,7 @@ class OdomNdtApp:
         self.tgt_exclude = max(0, min(int(reg.odom_target_exclude), self.tgt_window - 1))
         self._trajectory: List[TrajectoryEntry] = []
         self._stats = StatsArchive()
+        self.viz = None  # Optional[common.VizHook], set by the command line's --viz
         self.timer = StageTimer()  # host spans
         self.device_timer = DeviceStageTimer(self.device)  # per-stage device spans
         self.process_end_s: List[float] = []  # host clock as each process() returns
@@ -398,6 +406,12 @@ class OdomNdtApp:
         # keyframes whose device results are still in flight; the host reads
         # them two keyframes late, so the read overlaps the next dispatch
         self._pending: List[tuple] = []
+        # loop closure: the detector, its verified closures, and the
+        # odometry chain (relative pose, LiDAR covariance) for the
+        # pose-graph refinement
+        self._detector = LoopDetector(self.loop_cfg or LoopClosureConfig()) if self.loop_closure else None
+        self._closures = []
+        self._odo_rels: List[tuple] = []
 
     @property
     def trajectory(self) -> List[TrajectoryEntry]:
@@ -479,8 +493,11 @@ class OdomNdtApp:
                 init_noise=self._particle_noise(), scan_grid=self._scan_grid,
             )
         self._n_keyframes += 1
+        # the detector keeps its own copy of the cloud
+        det_cloud = (scan.points.clone(), scan.mask.clone()) if self._detector is not None else None
+        viz_pts = self.viz.subsample(scan) if self.viz is not None else None
         self._pending.append((synced, scan.num_points, ins_pose, ins_sigma, scaled_sigma,
-                              self.timer.last_ms("step"), out))
+                              self.timer.last_ms("step"), out, det_cloud, viz_pts))
         if len(self._pending) > 2:
             self._drain_one()
         self.process_end_s.append(time.perf_counter())
@@ -499,12 +516,18 @@ class OdomNdtApp:
         self.device_timer.collect()
 
     def _drain_one(self):
-        synced, num_points, ins_pose, ins_sigma, scaled_sigma, dt_ms, out_dev = self._pending.pop(0)
+        (synced, num_points, ins_pose, ins_sigma, scaled_sigma, dt_ms, out_dev, det_cloud,
+         viz_pts) = self._pending.pop(0)
         out = out_dev.cpu().numpy().astype(np.float64)
         pose_opt = (out[0:9].reshape(3, 3), out[9:12])
         cov_opt = out[12:48].reshape(6, 6)
         lidar_cov = out[48:84].reshape(6, 6)
         ndt_score, ndt_iters, ndt_converged, w = out[96:100]
+        if self.viz is not None:
+            self.viz.push(viz_pts, Pose3(*pose_opt), synced.scan.frame_id, ins_pose=ins_pose)
+        if self._detector is not None:
+            self._odo_rels.append((Pose3(out[84:93].reshape(3, 3), out[93:96]), lidar_cov))
+            self._closures += self._detector.add_keyframe(Pose3(*pose_opt), *det_cloud)
         self._trajectory.append(TrajectoryEntry(
             timestamp=synced.t_end, frame_id=synced.scan.frame_id,
             pose=Pose3(pose_opt[0], pose_opt[1]), ins_pose=ins_pose, covariance=cov_opt,
@@ -553,6 +576,49 @@ class OdomNdtApp:
         prev_mask[M - 1] = scan.mask
         self._carry.update(prev_points=prev_points, prev_mask=prev_mask)
         self._n_keyframes += 1
+        if self.viz is not None:
+            self.viz.push(self.viz.subsample(scan), ins_pose, synced.scan.frame_id, ins_pose=ins_pose)
+        if self._detector is not None:
+            self._closures += self._detector.add_keyframe(Pose3(rot, trans), scan.points.clone(),
+                                                          scan.mask.clone())
         self._trajectory.append(TrajectoryEntry(
             timestamp=synced.t_end, frame_id=synced.scan.frame_id, pose=ins_pose, ins_pose=ins_pose,
         ))
+
+    def refine_loop_closures(self):
+        """Offline pose-graph pass over the whole trajectory: the odometry
+        chain's between factors (each keyframe's registration relative and
+        LiDAR covariance), every verified loop closure, and the
+        trust-gain-scaled INS priors (pipeline.cpp:676-736 completed with
+        ``fusion.pose_graph``), on the app's device in float64. Rewrites the
+        trajectory's poses in place (host float64) and returns (refined
+        poses, closures).
+
+        As in the reference, node k's prior sigma is the scaled sigma of
+        the k-th keyframe record (records start at the second keyframe),
+        falling back to the INS sigma and then, for the last node, to
+        1e-2."""
+        if self._detector is None:
+            raise RuntimeError("construct the app with loop_closure=True")
+        traj = self.trajectory
+        poses = [e.pose for e in traj]
+        if not self._closures:
+            log.info("no loop closures found; trajectory unchanged")
+            return poses, []
+        prior_sigmas = []
+        for rec in self.stats.records[: len(traj)]:
+            sig = np.asarray(rec.scaled_sigma)
+            if not (sig > 0).all():
+                sig = np.maximum(np.asarray(rec.ins_sigma), 1e-6)
+            prior_sigmas.append(np.maximum(sig, 1e-6))
+        while len(prior_sigmas) < len(traj):
+            prior_sigmas.append(np.full(6, 1e-2))
+        _, result = refine_trajectory(
+            poses, [r for r, _ in self._odo_rels], [c for _, c in self._odo_rels], self._closures,
+            prior_poses=[e.ins_pose for e in traj], prior_sigmas=prior_sigmas, device=self.device,
+        )
+        rot = result.poses.rot.cpu().numpy().astype(np.float64)  # one read each
+        trans = result.poses.trans.cpu().numpy().astype(np.float64)
+        for e, R, t in zip(traj, rot, trans):
+            e.pose = Pose3(R, t)
+        return [e.pose for e in traj], self._closures

@@ -6,13 +6,15 @@ and back. This module imports no JAX.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import List, Mapping
 
 import numpy as np
 import torch
 
 from .core.se3 import Pose3
 from .fusion import graph
+from .fusion.loop_closure import LoopClosure
+from .fusion.pose_graph import PoseGraph
 from .fusion.preintegration import ImuNoise
 from .fusion.smoother import SmootherConfig
 from .mapping.gaussian_map import GaussianMap
@@ -140,6 +142,23 @@ def factors_from_numpy(fields, device="cpu") -> graph.Factors:
     out = {name: cls(*(_f64_or_index(_fields(f[name])[k], device) for k in cls._fields))
            for name, cls in kinds.items()}
     return graph.Factors(**out, gravity=_t(f["gravity"], device, torch.float64))
+
+
+def pose_graph_from_numpy(fields, device="cpu") -> PoseGraph:
+    """The port's PoseGraph from the reference PoseGraph (a NamedTuple, or
+    the same as mappings, its arrays numpy or anything ``np.array`` takes):
+    floats keep their dtype, indices become int32, masks stay bool."""
+    f = _fields(fields)
+    poses = _fields(f["poses"])
+    return PoseGraph(Pose3(_t(poses["rot"], device), _t(poses["trans"], device)),
+                     *(_t(f[k], device) for k in PoseGraph._fields[1:]))
+
+
+def loop_closures_from_reference(closures, device="cpu") -> List[LoopClosure]:
+    """The port's LoopClosures from the reference's: the relative pose as
+    tensors of its own dtype on ``device``, the covariance float64 numpy."""
+    return [LoopClosure(int(c.i), int(c.j), Pose3(_t(c.relative.rot, device), _t(c.relative.trans, device)),
+                        np.asarray(c.covariance, np.float64), float(c.score)) for c in closures]
 
 
 def smoother_config_from_reference(cfg) -> SmootherConfig:

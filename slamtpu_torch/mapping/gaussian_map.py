@@ -8,8 +8,8 @@ pass 2: mean, Bessel-corrected covariance, eigenvalue inflation at
 
 Float segment sums go through ``segment_sum``, which adds each segment in
 a fixed order on either device, so a build repeats bit for bit and a
-resumed run can equal a continuous one: float64 prefix sums on the GPU
-(``segment_sum_scan``), float32 ``index_add_`` on the CPU.
+resumed run can equal a continuous one: float64 two-level prefix sums on
+the GPU (``segment_sum_scan``), float32 ``index_add_`` on the CPU.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from . import voxel
 
 MIN_EIGENVALUE_THRESHOLD = 1e-12
 MAX_INVERSE_COEFF = 1e12
+SCAN_BLOCK = 256  # rows a block of segment_sum_scan's first scan level
 
 
 class VoxelStats(NamedTuple):
@@ -79,19 +80,32 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor, num_segments: int) -> t
 def segment_sum_scan(values: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
     """``segment_sum`` by float64 prefix sums over the sorted ``seg`` (the
     GPU's path; on any device): each segment is the difference of the
-    prefix sum at its two ends. A scan adds in a fixed order, and in
-    float64 the difference is off by ~1e-9 at most for the map's
-    corner-relative sums, below their float32 rounding."""
-    # one 1-D scan over the columns laid end to end, each led by a zero: the
-    # GPU scans a 1-D tensor with the whole device, where a scan along a
-    # dimension of a 2-D one runs a thread (or block) per column. Within a
-    # column the difference cancels the sums of the columns before it.
+    prefix sum at its two ends. In float64 the difference is off by ~1e-9
+    at most for the map's corner-relative sums, below their float32
+    rounding.
+
+    The prefix sum runs in two levels of fixed shape, within blocks of
+    ``SCAN_BLOCK`` rows and then over the block totals, each a ``cumsum``
+    along the last dimension of a tensor of two or more rows: the GPU scans
+    those with a fixed assignment of elements to threads, so the sums
+    repeat bit for bit. (A 1-D ``cumsum`` goes to a decoupled look-back
+    scan, whose float additions come in an order that changes from run to
+    run.) Columns are scanned apart, so no column's sum leaks into
+    another's."""
     M = values.shape[0]
-    cols = torch.nn.functional.pad(values.reshape(M, -1).t().to(torch.float64), (1, 0))
-    prefix = torch.cumsum(cols.reshape(-1), 0).view(cols.shape)
+    cols = values.reshape(M, -1).t().to(torch.float64)  # (C, M)
+    C = cols.shape[0]
+    if C == 1:  # a second row keeps every scan two-dimensional
+        cols = torch.nn.functional.pad(cols, (0, 0, 0, 1))
+    B = max(-(-M // SCAN_BLOCK), 1)
+    blocks = torch.nn.functional.pad(cols, (0, B * SCAN_BLOCK - M)).view(cols.shape[0], B, SCAN_BLOCK)
+    within = torch.cumsum(blocks, dim=2)
+    totals = within[:, :, -1]
+    before = torch.cumsum(totals, dim=1) - totals  # the blocks before each block
+    prefix = torch.nn.functional.pad((within + before[:, :, None]).view(cols.shape[0], -1), (1, 0))
     ids = torch.arange(num_segments, dtype=seg.dtype, device=seg.device)
     lo, hi = torch.searchsorted(seg, ids), torch.searchsorted(seg, ids, right=True)
-    sums = (prefix[:, hi] - prefix[:, lo]).t()
+    sums = (prefix[:C, hi] - prefix[:C, lo]).t()
     return sums.to(values.dtype).reshape((num_segments,) + tuple(values.shape[1:]))
 
 
@@ -219,6 +233,14 @@ def finalize(
         keys=stats.keys, count=n, mean=mean, cov=cov, icov=icov, evals=evals,
         evecs=evecs, valid=valid, origin=stats.origin, resolution=stats.resolution,
     )
+
+
+def origin_for(points, mask, resolution: float, margin_voxels: int = 64) -> torch.Tensor:
+    """A map origin (lower corner, on the voxel lattice) with the masked
+    points well inside the [0, GRID_DIM)^3 key range: ``margin_voxels``
+    below their smallest coordinates. Stays on the device."""
+    pmin = torch.amin(torch.where(mask[:, None], points, float("inf")), dim=0)
+    return (torch.floor(pmin / resolution) - margin_voxels) * resolution
 
 
 def recenter_origin(origin, position, resolution: float, grid_dim: int = None,

@@ -34,6 +34,14 @@ its fused driver over the pair kernels' plain versions with
     packages: the port's DIRECT1 run equals its DIRECT7 run bit for bit
     and the reference's DIRECT1 run at the bounds of (b).
 (e) The options the port does not carry raise.
+(f) Loop closure: ``run_replay`` of both packages with ``loop_closure=True``
+    on a circle replay that revisits its start, then
+    ``refine_loop_closures``: the same (i, j) closures; per-keyframe poses
+    before the refinement within 1e-3 m / 1e-4 rad (measured 5.2e-4 m:
+    over 17 keyframes the registrations' float32 roundings add up past
+    (b)'s 5e-4); the refined poses within 1e-3 m / 1e-3 rad of the
+    reference's (they inherit that gap, and the closures' relative poses
+    differ by the rounding of two Newton runs).
 """
 import dataclasses
 
@@ -264,7 +272,8 @@ def test_direct1_runs_direct7(replay):
     _assert_runs_match(path, gt, jt, tt)
 
 
-@pytest.mark.parametrize("change", [dict(use_regmap=False), dict(loop_closure=True)])
+# the sorted-key objective stays unported, with loop closure too
+@pytest.mark.parametrize("change", [dict(use_regmap=False), dict(use_regmap=False, loop_closure=True)])
 def test_unported_engines_raise(change):
     _, tcfg = configs("NDT_OMP")
     change = dict(change)
@@ -274,3 +283,69 @@ def test_unported_engines_raise(change):
         todom.OdomNdtApp(cfg, "cpu", **app_kw)
     with pytest.raises(ValueError):
         todom.OdomNdtApp(tcfg, "cpu", method="ICP")
+
+
+# tests/test_e2e.py's loop-closure settings with the temporal gap cut from 30
+# to 15 keyframes, on a skewed 18-sweep replay along a circle of radius
+# 0.95 m (1 m/s, 6 s a turn: every keyframe lies within the 2 m search
+# radius of the first ones), which closes twice: (0, 15) and (1, 16)
+LOOP_CFG = dict(search_radius=2.0, min_keyframe_gap=15, max_candidates_per_keyframe=1,
+                resolution=2.0, min_contrib_ratio=0.05)
+LOOP_SWEEPS, LOOP_SPEED, LOOP_PERIOD_S = 18, 1.0, 6.0
+
+
+@pytest.fixture(scope="module")
+def loop_replay(tmp_path_factory):
+    from tests.simulator import ArcTrajectory
+
+    jcfg, _ = configs("NDT_OMP")
+    path = str(tmp_path_factory.mktemp("odom_loop") / "circle.rpl")
+    gt = simulate_replay(path, jcfg.meta, jcfg.lidar, n_sweeps=LOOP_SWEEPS, skewed=True,
+                         traj=ArcTrajectory(v=LOOP_SPEED, yaw_rate=2 * np.pi / LOOP_PERIOD_S))
+    return path, gt
+
+
+def test_loop_closure_run_replay_matches_reference(loop_replay):
+    from slamtpu.fusion.loop_closure import LoopClosureConfig as JLoop
+    from slamtpu_torch.fusion.loop_closure import LoopClosureConfig as TLoop
+
+    path, gt = loop_replay
+    jcfg, tcfg = configs("NDT_OMP")
+    japp = jodom.OdomNdtApp(jcfg, window=6, loop_closure=True, loop_cfg=JLoop(**LOOP_CFG))
+    tapp = todom.OdomNdtApp(tcfg, "cpu", window=6, loop_closure=True, loop_cfg=TLoop(**LOOP_CFG))
+    jt, tt = japp.run_replay(path), tapp.run_replay(path)
+    assert len(tt) == len(jt) == LOOP_SWEEPS - 1
+    for a, b in zip(jt, tt):
+        _assert_pose_close(b.pose.rot, b.pose.trans, a.pose.rot, a.pose.trans, atol_m=1e-3)
+    pairs = [(c.i, c.j) for c in tapp._closures]
+    assert pairs == [(c.i, c.j) for c in japp._closures]
+    assert pairs and all(j - i >= LOOP_CFG["min_keyframe_gap"] for i, j in pairs)
+    ate_before = _ate(tt, gt)
+    jrefined, _ = japp.refine_loop_closures()
+    refined, closures = tapp.refine_loop_closures()
+    assert [(c.i, c.j) for c in closures] == pairs
+    gap = max(np.abs(b.trans - np.asarray(a.trans)).max() for a, b in zip(jrefined, refined))
+    print(f"refined poses: max {gap:.3g} m from the reference's")
+    for a, b in zip(jrefined, refined):
+        _assert_pose_close(b.rot, b.trans, np.asarray(a.rot), np.asarray(a.trans), atol_m=1e-3, atol_rad=1e-3)
+    for e, p in zip(tapp.trajectory, refined):  # rewritten in place, host float64
+        assert e.pose is p and p.trans.dtype == np.float64
+    ate_after = _ate(tt, gt)
+    print(f"loop closure: {len(pairs)} closures, ATE {ate_before:.6f} -> {ate_after:.6f} m "
+          f"(reference {_ate(jt, gt):.6f} m after)")
+    assert np.isfinite(ate_after) and ate_after < max(2.0 * ate_before, 0.05)
+
+
+def test_loop_closure_without_closures_leaves_the_trajectory(replay):
+    from slamtpu_torch.fusion.loop_closure import LoopClosureConfig
+
+    path, _ = replay
+    _, tcfg = configs("NDT_OMP")
+    app = todom.OdomNdtApp(tcfg, "cpu", window=WINDOW, loop_closure=True, loop_cfg=LoopClosureConfig())
+    traj = app.run_replay(path)
+    before = [e.pose.trans.copy() for e in traj]
+    assert len(app._odo_rels) == len(traj) - 1 and len(app._detector.poses) == len(traj)
+    poses, closures = app.refine_loop_closures()
+    assert closures == [] and all(np.array_equal(p.trans, b) for p, b in zip(poses, before))
+    with pytest.raises(RuntimeError, match="loop_closure=True"):
+        todom.OdomNdtApp(tcfg, "cpu").refine_loop_closures()
