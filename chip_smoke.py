@@ -91,18 +91,42 @@
 12. command-line phase: ``python -m slamtpu_torch odom_ndt --loop-closure``
    (``__main__.main``, Berlin preset, ``--device`` default cuda) over the
    12-sweep replay; checks its files and that its poses are finite.
+13. live phase: a sender process plays the circle replay of 11. over
+   loopback at its recorded timestamps (10 sweeps/s: ~1280 LiDAR and 250
+   ANPP datagrams/s) into ``LivePipeline(cfg, app, io_backend="native")``,
+   once with odom NDT_OMP and once with lo_svn; prints datagrams sent,
+   received and dropped, frames synced, processed and dropped, errors,
+   keyframes/s, the latency from a sweep's last datagram to the return of
+   ``process`` (p50, p95, max), the drain time after the last datagram,
+   the ATE of the processed keyframes, host syncs a keyframe and the
+   kernels' launches; then 12 sweeps into the asyncio backend (its
+   drops), and the reactor's per-datagram decode time on this host.
+   Checks that the app raised nothing, that frames were processed through
+   the expected kernels with finite poses, and, when nothing was dropped,
+   odom NDT_OMP's ATE within 2x of 11.'s before its refinement.
+14. per-particle SVN: ``svn_align_reg`` on the kernel phase's sweep with
+   the shared gather and with ``shared_gather=False`` (K = 20): B1
+   launches an iteration (1 against 20), ms a call, the pose difference.
+15. dist phase: ``slamtpu_torch.dist`` over NCCL at world size 1 (one
+   card), at the Berlin width: ``build_map_sharded``,
+   ``newton_align_sharded_reg`` and ``_fused``, ``lo_train_step``,
+   ``svn_align_sharded`` (K = 20) and ``batch_align_sharded`` (B = 8
+   offsets of one sweep), each against its one-device counterpart (bit
+   for bit), with ms a call, collectives and B1 launches.
 Each replay phase prints the ATE, steady-state keyframes/s, iteration
 counts, host syncs per keyframe, per-stage device times and peak memory.
 The kernel phase also holds the NDT pair kernel at K = 1 against a
 5-cloud map at the ligo operating point's capacity (2^16) and grid.
-Importing slamtpu_torch, slamtpu_torch.fusion and slamtpu_torch.__main__
-must leave CUDA uninitialized.
+Importing slamtpu_torch, slamtpu_torch.fusion, slamtpu_torch.__main__,
+slamtpu_torch.runtime.live and slamtpu_torch.dist must leave CUDA
+uninitialized.
 
 It imports neither JAX nor the JAX package. It exits non-zero, printing no
 result line, when CUDA is unavailable or any check fails. The last line of
 standard output is ``{"ok": true, "device": {...}}``.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -170,6 +194,12 @@ LOOP_SWEEPS, LOOP_SPEED, LOOP_PERIOD_S = 46, 3.0, 4.0
 LOOP_CFG = dict(search_radius=2.0, min_keyframe_gap=30, max_candidates_per_keyframe=1,
                 resolution=2.0, min_contrib_ratio=0.05)
 LOOP_GRID, LOOP_CAPACITY = (128, 128, 32), 1 << 14  # the verification map's
+# the live phase: the circle replay at 10 sweeps/s; the asyncio backend's
+# short run sends this many sweeps. The dist phase's batch: B offsets of one sweep
+LIVE_ASYNCIO_SWEEPS, LIVE_BATCH = 12, 8
+# the dist phase's registrations start 0.33 m off the true pose (set before
+# the first card run)
+DIST_POSE_BOUND = 0.05
 TIMED_ROUNDS, TIMED_LAUNCHES = 10, 20
 SPIN_CYCLES_PER_S = 2.0e9  # at least the H100's top SM clock (1.98 GHz)
 # kernel vs plain on the same inputs. The pair count may differ by a few in
@@ -361,6 +391,7 @@ def kernel_inputs(torch, replay_path, gt, cfg, dev):
     d1, d2, _ = gauss_constants(res, cfg.register.svn_outlier_ratio)
     inp = dict(
         N=N, K=K, pts=pts, mask=mask, pose=pose_b, ptsT=pts.t().contiguous(), regmap=regmap,
+        world_a=world_a, mask_a=scan_a.mask, origin=origin,
         regmap_g=regmap_g, regmap_o=regmap_o, regmap_oa=regmap_oa, regmap_l=regmap_l, ring=ring,
         ptsT_l=scan_l.points.t().contiguous(),
         rows_l=grid_rows(scan_l.points, scan_l.mask, pose_l, regmap_l, LIGO_GRID),
@@ -656,7 +687,7 @@ def kernel_phase(torch, replay_path, gt, cfg, dev, card):
             e["gather_megaT_ms"], e["grid_rows_ms"] = gather_aux_ms, index_ms
             e["grid_rows_plus_kernel_ms"] = polish_ms
         entries.append(e)
-    return entries
+    return entries, inp
 
 
 def timed_pair(torch, a, b):
@@ -966,24 +997,18 @@ def posegraph_phase(torch, dev, card):
                 host_syncs=sum(syncs.values()), peak_mib=peak)
 
 
-def loop_phase(torch, cfg, tconfig, dev, card, tmp):
-    """odom NDT_OMP with loop closure over a 46-sweep Berlin-shape circle
-    replay, then the pose-graph refinement. Returns the launch counts."""
+def loop_phase(torch, cfg, tconfig, dev, card, path, gt):
+    """odom NDT_OMP with loop closure over the 46-sweep Berlin-shape circle
+    replay, then the pose-graph refinement. Returns the launch counts and
+    the ATE before the refinement."""
     import numpy as np
 
-    import simulator_np
     from slamtpu_torch.apps.common import ate_rmse, np_between
     from slamtpu_torch.apps.odom_ndt import OdomNdtApp
     from slamtpu_torch.core.se3 import Pose3
     from slamtpu_torch.fusion.loop_closure import LoopClosureConfig
     from slamtpu_torch.ndt import fused_math
 
-    path = os.path.join(tmp, "loop.rpl")
-    t0 = time.perf_counter()
-    gt = simulator_np.simulate_replay(path, cfg.meta, cfg.lidar, n_sweeps=LOOP_SWEEPS, skewed=True,
-                                      traj=simulator_np.ArcTrajectory(v=LOOP_SPEED,
-                                                                      yaw_rate=2 * np.pi / LOOP_PERIOD_S))
-    log(f"simulated {LOOP_SWEEPS} skewed sweeps around the circle in {time.perf_counter() - t0:.1f} s")
     app = OdomNdtApp(odom_cfg(tconfig, cfg, "NDT_OMP"), dev, window=6, loop_closure=True,
                      loop_cfg=LoopClosureConfig(**LOOP_CFG))
     det = app._detector
@@ -1031,7 +1056,7 @@ def loop_phase(torch, cfg, tconfig, dev, card, tmp):
     for e in traj:
         assert np.isfinite(e.pose.rot).all() and np.isfinite(e.pose.trans).all()
     assert ate_after <= max(2.0 * ate_before, 0.05), (ate_before, ate_after)
-    return launches
+    return launches, ate_before
 
 
 def cli_phase(torch, replay_path, card, tmp):
@@ -1065,6 +1090,402 @@ def cli_phase(torch, replay_path, card, tmp):
     return dict(fused_math.LAUNCHES)
 
 
+def send_replay(path, lidar_port, compass_port, out_path, max_sweeps=None):
+    """The sensors: send a replay's datagrams to loopback at their recorded
+    timestamps, from a process of its own (the sensors are other machines
+    and must not take the receiver's interpreter lock). Writes to
+    ``out_path`` (JSON) the datagrams sent per stream and, per LiDAR frame
+    id, the monotonic time its last datagram left. ``max_sweeps`` stops
+    after that many LiDAR frames."""
+    import socket
+
+    sys.path.insert(0, str(ROOT))
+    from slamtpu_torch.runtime.replay import STREAM_LIDAR, read_replay
+
+    packets = list(read_replay(path))
+    out = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    sent, last, late = {"lidar": 0, "compass": 0}, {}, 0.0
+    t0, ts0 = time.monotonic() + 0.1, packets[0][1]
+    try:
+        for stream, ts, payload in packets:
+            if stream == STREAM_LIDAR:
+                fid = int.from_bytes(payload[2:4], "little")  # RNG19 header: frame_id le16 at 2
+                if max_sweeps is not None and fid not in last and len(last) >= max_sweeps:
+                    break
+            due = t0 + (ts - ts0)
+            wait = due - time.monotonic()
+            if wait > 0:
+                time.sleep(wait)
+            late = max(late, -wait)
+            if stream == STREAM_LIDAR:
+                out.sendto(payload, ("127.0.0.1", lidar_port))
+                sent["lidar"] += 1
+                last[fid] = time.monotonic()
+            else:
+                out.sendto(payload, ("127.0.0.1", compass_port))
+                sent["compass"] += 1
+    finally:
+        out.close()
+    with open(out_path, "w") as f:
+        json.dump({"sent": sent, "last_sent": last, "max_late_s": late}, f)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class LiveProbe:
+    """Around a port app in a ``LivePipeline``: each ``process`` return
+    time by frame id and the exceptions it raised (re-raised, so that the
+    worker logs them as it would)."""
+
+    def __init__(self, app):
+        self.app, self.returned, self.raised, self.busy = app, {}, [], False
+
+    def process(self, synced):
+        self.busy = True
+        try:
+            self.app.process(synced)
+        except Exception as e:
+            self.raised.append(repr(e))
+            raise
+        finally:
+            self.returned[synced.scan.frame_id] = time.monotonic()
+            self.busy = False
+
+
+def live_run(torch, cfg, app, replay_path, backend, tmp, max_sweeps=None, limit_s=120.0):
+    """``app`` behind ``LivePipeline(cfg, ..., io_backend=backend)`` on two
+    loopback ports while a sender process plays the replay at its recorded
+    rate; ends once the sender has finished and the queue has drained.
+    Returns (pipeline, probe, sender's record, datagrams received by stream,
+    frames synced, host syncs, launches)."""
+    import asyncio
+    import multiprocessing
+
+    from slamtpu_torch.ndt import fused_math
+    from slamtpu_torch.runtime.live import LivePipeline
+    from slamtpu_torch.runtime.udp import UdpConfig
+
+    probe = LiveProbe(app)
+    lp, cp = _free_port(), _free_port()
+    pipeline = LivePipeline(cfg, probe, lidar_udp=UdpConfig(host="127.0.0.1", port=lp, buffer_size=1 << 22),
+                            compass_udp=UdpConfig(host="127.0.0.1", port=cp), io_backend=backend)
+    received, synced = Counter(), [0]
+    on_lidar, on_compass, enqueue = pipeline._on_lidar, pipeline._on_compass, pipeline._enqueue
+
+    def count_lidar(payload):
+        received["lidar"] += 1
+        on_lidar(payload)
+
+    def count_compass(payload):
+        received["compass"] += 1
+        on_compass(payload)
+
+    def count_synced(frame):
+        synced[0] += 1
+        enqueue(frame)
+
+    pipeline._on_lidar, pipeline._on_compass, pipeline._enqueue = count_lidar, count_compass, count_synced
+    record = os.path.join(tmp, f"sent_{backend}_{lp}.json")
+    sender = multiprocessing.get_context("spawn").Process(
+        target=send_replay, args=(replay_path, lp, cp, record, max_sweeps), daemon=True)
+
+    async def supervise():
+        task = asyncio.ensure_future(pipeline.run(duration_s=limit_s))
+        while not pipeline.ready.is_set():
+            if task.done():
+                return await task  # the pipeline failed to start: raise its error
+            await asyncio.sleep(0.01)
+        sender.start()
+        while sender.is_alive() or not (pipeline._q.empty() and not probe.busy
+                                        and len(probe.returned) + pipeline.dropped_frames >= synced[0]):
+            if task.done():
+                return await task
+            await asyncio.sleep(0.05)
+        task.cancel()
+        try:
+            await task
+        except asyncio.CancelledError:
+            pass
+
+    for k in fused_math.LAUNCHES:
+        fused_math.LAUNCHES[k] = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            asyncio.run(supervise())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            sender.join(timeout=30)
+            if sender.is_alive():
+                sender.kill()
+    torch.cuda.synchronize()
+    assert sender.exitcode == 0, f"the sender exited with {sender.exitcode}"
+    with open(record) as f:
+        sent = json.load(f)
+    syncs = sum(n for site, n in sync_sites(caught).items() if not site.startswith("device_timer.py"))
+    return pipeline, probe, sent, received, synced[0], syncs, dict(fused_math.LAUNCHES)
+
+
+def live_phase(torch, cfg, tconfig, dev, card, replay_path, gt, odom_ate_replay, tmp):
+    """The live runtime on the card: the circle replay sent over loopback at
+    10 sweeps/s into ``LivePipeline(io_backend="native")`` with odom NDT_OMP
+    and with lo_svn, and a short asyncio-backend run. Returns the launch
+    counts of the native runs."""
+    import numpy as np
+
+    from slamtpu_torch.apps.common import ate_rmse, np_between
+    from slamtpu_torch.apps.lo_svn import LoSvnApp
+    from slamtpu_torch.apps.odom_ndt import OdomNdtApp
+    from slamtpu_torch.core.se3 import Pose3
+    from slamtpu_torch.ndt import fused_math
+    from slamtpu_torch.runtime.replay import STREAM_COMPASS, STREAM_LIDAR
+
+    fused_math._load()  # built already; the worker thread must never wait for nvcc
+    # the reactor's decode, on this host: per datagram in Python (the live
+    # path) against the replay path's batched native decode
+    from slamtpu_torch.lidar.ouster import FrameAssembler, build_luts
+    from slamtpu_torch.runtime.replay import read_replay
+
+    luts = build_luts(cfg.meta, cfg.lidar)
+    sweeps = [p for s_, _, p in read_replay(replay_path) if s_ == STREAM_LIDAR][:4 * 128]
+    asm = FrameAssembler(cfg.meta, luts)
+    t0 = time.perf_counter()
+    for p in sweeps:
+        asm.push_packet(p)
+    one_ms = 1e3 * (time.perf_counter() - t0) / len(sweeps)
+    asm = FrameAssembler(cfg.meta, luts)
+    t0 = time.perf_counter()
+    asm.push_packets(sweeps)
+    batch_ms = 1e3 * (time.perf_counter() - t0) / len(sweeps)
+    log(f"[{card}] LiDAR decode on this host: push_packet {one_ms:.4f} ms a datagram "
+        f"({one_ms * 128:.2f} ms a sweep of 128), push_packets (native batch) {batch_ms:.4f} ms a datagram")
+    launches = Counter()
+    result = {}
+    for label, make_app, kernels in (
+            ("odom NDT_OMP", lambda: OdomNdtApp(odom_cfg(tconfig, cfg, "NDT_OMP"), dev, window=6), ("ndt_pair",)),
+            ("lo_svn", lambda: LoSvnApp(cfg, dev), ("ndt_pair", "aniso_pair"))):
+        pipeline, probe, sent, received, synced, syncs, counts = live_run(torch, cfg, make_app(), replay_path,
+                                                                          "native", tmp)
+        launches.update(counts)
+        traj = probe.app.trajectory
+        done = sorted(probe.returned)
+        lat = sorted(1e3 * (probe.returned[f] - sent["last_sent"][str(f)]) for f in done)
+        ends = [probe.returned[f] for f in done]
+        kf_s = (len(ends) - 1) / (ends[-1] - ends[0]) if len(ends) > 1 else float("nan")
+        drain = max(ends) - max(sent["last_sent"].values())
+        ring = {"lidar": pipeline.rx_dropped.get(STREAM_LIDAR, 0), "compass": pipeline.rx_dropped.get(STREAM_COMPASS, 0)}
+        lost = {k: sent["sent"][k] - received[k] - ring[k] for k in ring}
+        gtp = [Pose3(np.asarray(R), np.asarray(p)) for R, p in gt]
+        ate = ate_rmse([np_between(traj[0].pose, e.pose) for e in traj],
+                       [np_between(gtp[traj[0].frame_id], gtp[e.frame_id]) for e in traj])
+        log(f"[{card}] live {label} (native backend): datagrams sent {sent['sent']}, received {dict(received)}, "
+            f"ring drops {ring}, lost before the ring {lost}; sender at most "
+            f"{1e3 * sent['max_late_s']:.2f} ms late; frames synced {synced}, processed {len(done)}, dropped "
+            f"{pipeline.dropped_frames}, errors {len(pipeline.errors)}, app exceptions {len(probe.raised)}; "
+            f"{kf_s:.3f} keyframes/s over the run; latency last datagram -> process returned p50 "
+            f"{statistics.median(lat):.1f} ms, p95 {lat[int(0.95 * (len(lat) - 1))]:.1f} ms, max {lat[-1]:.1f} ms; "
+            f"drain after the last datagram {drain:.3f} s; ATE {ate:.6f} m over {len(traj)} keyframes (frames "
+            f"{done[0]}..{done[-1]}); host syncs {syncs} ({syncs / len(done):.2f} a keyframe); launches {counts}")
+        assert not probe.raised, probe.raised[:3]
+        assert done and all(counts[k] > 0 for k in kernels), (label, counts)
+        for e in traj:
+            assert np.isfinite(e.pose.rot).all() and np.isfinite(e.pose.trans).all()
+        clean = pipeline.dropped_frames == 0 and received == Counter(sent["sent"])
+        if label.startswith("odom") and clean:
+            assert ate <= 2.0 * odom_ate_replay, (ate, odom_ate_replay)
+        result[label] = dict(synced=synced, processed=len(done), dropped=pipeline.dropped_frames, ring=ring,
+                             kf_s=kf_s, ate=ate, lost=lost)
+    # the asyncio backend, briefly: what it loses at 1280 datagrams/s
+    pipeline, probe, sent, received, synced, _, _ = live_run(
+        torch, cfg, OdomNdtApp(odom_cfg(tconfig, cfg, "NDT_OMP"), dev, window=6), replay_path, "asyncio", tmp,
+        max_sweeps=LIVE_ASYNCIO_SWEEPS)
+    log(f"[{card}] live odom NDT_OMP (asyncio backend, {LIVE_ASYNCIO_SWEEPS} sweeps): datagrams sent "
+        f"{sent['sent']}, received {dict(received)}, lost {sent['sent']['lidar'] - received['lidar']} LiDAR / "
+        f"{sent['sent']['compass'] - received['compass']} compass; frames synced {synced}, processed "
+        f"{len(probe.returned)}, dropped {pipeline.dropped_frames}, errors {len(pipeline.errors)}, app "
+        f"exceptions {len(probe.raised)}")
+    assert not probe.raised, probe.raised[:3]
+    return dict(launches)
+
+
+def per_particle_phase(torch, inp, cfg, card):
+    """svn_align_reg on the kernel phase's sweep with the shared gather and
+    with per-particle gathers (``shared_gather=False``). Returns the launch
+    counts."""
+    from slamtpu_torch.core import se3
+    from slamtpu_torch.ndt import fused_math
+    from slamtpu_torch.ndt.svn import SvnConfig, svn_align_reg
+
+    reg = cfg.register
+    K = reg.svn_particles
+    g = torch.Generator(device=inp["pts"].device)
+    g.manual_seed(1)
+    noise = torch.randn((K, 6), generator=g, device=inp["pts"].device)
+    prior = se3.retract(inp["pose"], torch.tensor([0.002, -0.001, 0.003, 0.05, -0.04, 0.02],
+                                                  device=inp["pts"].device))
+    out, launches = {}, Counter()
+    for shared in (True, False):
+        scfg = SvnConfig(resolution=reg.svn_resolution, num_particles=K, max_iterations=reg.svn_max_iterations,
+                         kernel_h=reg.svn_kernel_h, step_size=reg.svn_step_size, shared_gather=shared)
+
+        def run():
+            return svn_align_reg(inp["pts"], inp["mask"], inp["regmap"], prior, scfg, GRID, init_noise=noise)
+
+        run()  # warm
+        torch.cuda.synchronize()
+        before = dict(fused_math.LAUNCHES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        res = run()
+        end.record()
+        end.synchronize()
+        n = {k: fused_math.LAUNCHES[k] - before[k] for k in before}
+        launches.update(n)
+        out[shared] = res
+        T = reg.svn_max_iterations
+        log(f"[{card}] svn_align_reg shared_gather={shared}: K={K}, {T} trips, iterations "
+            f"{int(res.iterations)}; B1 launches {n['ndt_pair']} ({(n['ndt_pair'] - 1) / T:.1f} an iteration, "
+            f"+1 scoring the mean); {start.elapsed_time(end):.3f} ms by CUDA events, "
+            f"{1e3 * (time.perf_counter() - t0):.3f} ms host clock")
+        assert n["ndt_pair"] == (T if shared else K * T) + 1, n
+        assert torch.isfinite(res.pose.trans).all() and torch.isfinite(res.covariance).all()
+    d = se3.local(out[True].pose, out[False].pose).double().cpu()
+    err = [float(d[3:].norm()), float(d[:3].norm())]
+    true_err = [float(se3.local(inp["pose"], out[s].pose)[3:].norm()) for s in (True, False)]
+    log(f"[{card}] per-particle vs shared gather: pose difference {err[0]:.3e} m, {err[1]:.3e} rad; distance "
+        f"from the true pose {true_err[0]:.6f} m shared, {true_err[1]:.6f} m per-particle")
+    return dict(launches)
+
+
+def dist_phase(torch, inp, cfg, dev, card, tmp):
+    """The multi-device layer over NCCL at world size 1 (one card) at the
+    Berlin width, each function against its one-device counterpart.
+    Returns the launch counts."""
+    import torch.distributed as dist
+
+    from slamtpu_torch import dist as tdist
+    from slamtpu_torch.core import se3
+    from slamtpu_torch.core.se3 import Pose3
+    from slamtpu_torch.mapping import gaussian_map
+    from slamtpu_torch.ndt import fused_math
+    from slamtpu_torch.ndt.newton import NewtonConfig
+    from slamtpu_torch.ndt.svn import SvnConfig, svn_align_reg
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{os.path.join(tmp, 'dist_store')}", rank=0, world_size=1)
+    launches = Counter()
+    try:
+        reg = cfg.register
+        pts, mask, regmap = inp["pts"], inp["mask"], inp["regmap"]
+        init = se3.retract(inp["pose"], torch.tensor([0.01, -0.008, 0.02, 0.25, -0.2, 0.05], device=dev))
+
+        def timed(fn):
+            """(result, ms by CUDA events, collectives, launches) of one call after a warm one."""
+            fn()
+            torch.cuda.synchronize()
+            c0, l0 = dict(tdist.COLLECTIVES), dict(fused_math.LAUNCHES)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            r = fn()
+            end.record()
+            end.synchronize()
+            n = {k: fused_math.LAUNCHES[k] - l0[k] for k in l0}
+            launches.update(n)
+            return r, start.elapsed_time(end), {k: v - c0[k] for k, v in tdist.COLLECTIVES.items() if v - c0[k]}, \
+                n["ndt_pair"]
+
+        def same(a, b):
+            if isinstance(a, torch.Tensor):
+                return torch.equal(a, b)
+            return all(same(x, y) for x, y in zip(a, b))
+
+        def report(name, equal, ms, coll, b1, ms_one=None, note=""):
+            said = {True: "equal to its one-device counterpart", False: "NOT bit for bit equal to its one-device "
+                    "counterpart", None: "no one-device counterpart"}[equal]
+            log(f"[{card}] dist {name} ({dist.get_backend()}, 1 rank): {said}{note}; {ms:.3f} ms a call (CUDA events)"
+                + (f" against {ms_one:.3f} ms on one device" if ms_one is not None else "")
+                + f"; collectives {coll}; B1 launches {b1}")
+
+        world_a, mask_a, origin = inp["world_a"], inp["mask_a"], inp["origin"]
+        cap = reg.map_capacity
+        g, ms, coll, b1 = timed(lambda: tdist.build_map_sharded(world_a, mask_a, origin, 1.0, cap, 4))
+        one, ms1, _, _ = timed(lambda: gaussian_map.build_map(world_a, mask_a, origin, 1.0, cap, 4))
+        eq = same(g, one)
+        report("build_map_sharded", eq, ms, coll, b1, ms1)
+        assert eq and coll == {"all_gather": 5}
+
+        ncfg = NewtonConfig(resolution=1.0, max_iterations=30)
+        r, ms, coll, b1 = timed(lambda: tdist.newton_align_sharded_reg(pts, mask, regmap, init, GRID))
+        one, ms1, _, _ = timed(lambda: fused_math.newton_align_fused(pts, mask, regmap, init, ncfg, GRID,
+                                                                     final_eval=True))
+        eq = same(r, (one.pose, one.hessian, one.score, one.iterations))
+        moved = float(se3.local(inp["pose"], r[0])[3:].norm())
+        report("newton_align_sharded_reg", eq, ms, coll, b1, ms1,
+               f" ({int(r[3])} iterations, {moved:.6f} m from the true pose)")
+        assert eq and coll == {"all_reduce": int(r[3]) + 1} and moved < DIST_POSE_BOUND
+
+        fcfg = NewtonConfig(resolution=1.0, max_iterations=30, gather_stale_frac=0.25)
+        r, ms, coll, b1 = timed(lambda: tdist.newton_align_sharded_fused(pts, mask, regmap, init, GRID))
+        one, ms1, _, _ = timed(lambda: fused_math.newton_align_fused(pts, mask, regmap, init, fcfg, GRID,
+                                                                     inner_iters=6, final_eval=True))
+        eq = same(r, (one.pose, one.hessian, one.score, one.iterations))
+        moved = float(se3.local(inp["pose"], r[0])[3:].norm())
+        report("newton_align_sharded_fused", eq, ms, coll, b1, ms1,
+               f" ({int(r[3])} iterations, {moved:.6f} m from the true pose)")
+        assert eq and coll["all_reduce"] == b1 and moved < DIST_POSE_BOUND
+
+        stats = gaussian_map.stats_from_points(world_a, mask_a, origin, 1.0, cap)
+        r, ms, coll, b1 = timed(lambda: tdist.lo_train_step(pts, mask, stats, init, 1.0, cap, grid_shape=GRID,
+                                                            min_points_per_voxel=4))
+        grown = int(r[4].n.sum()) - int(stats.n.sum())
+        moved = float(se3.local(inp["pose"], r[0])[3:].norm())
+        report("lo_train_step", None, ms, coll, b1,
+               note=f" ({int(r[3])} iterations, {moved:.6f} m from the true pose, "
+                    f"map grew by {grown} points of {int(mask.sum())})")
+        assert grown == int(mask.sum()) and moved < DIST_POSE_BOUND and coll.get("all_gather") == 5
+
+        scfg = SvnConfig(resolution=reg.svn_resolution, num_particles=reg.svn_particles,
+                         max_iterations=reg.svn_max_iterations, kernel_h=reg.svn_kernel_h,
+                         step_size=reg.svn_step_size, polish_iters=4, polish_objective="ndt")
+        noise = torch.randn((reg.svn_particles, 6), generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+        r, ms, coll, b1 = timed(lambda: tdist.svn_align_sharded(pts, mask, regmap, inp["pose"], noise, scfg, GRID))
+        one, ms1, _, _ = timed(lambda: svn_align_reg(pts, mask, regmap, inp["pose"], scfg, GRID, init_noise=noise))
+        eq = same(r, one)
+        diff = float((r.pose.trans - one.pose.trans).abs().max())
+        report(f"svn_align_sharded K={scfg.num_particles}", eq, ms, coll, b1, ms1, "" if eq else f" (max pose difference {diff:.3e} m)")
+        assert diff < 1e-5
+
+        B = LIVE_BATCH
+        offsets = torch.linspace(0.2, 1.0, B, device=dev)[:, None] * torch.tensor(
+            [0.01, -0.008, 0.02, 0.25, -0.2, 0.05], device=dev)
+        inits = se3.retract(Pose3(inp["pose"].rot.expand(B, 3, 3), inp["pose"].trans.expand(B, 3)), offsets)
+        bcfg = NewtonConfig(resolution=1.0, max_iterations=30, gather_stale_frac=0.25)
+        bpts, bmask = pts.expand(B, -1, -1).contiguous(), mask.expand(B, -1).contiguous()
+        r, ms, coll, b1 = timed(lambda: tdist.batch_align_sharded(bpts, bmask, regmap, inits, bcfg, GRID,
+                                                                  inner_iters=2))
+        ones = [fused_math.newton_align_fused(pts, mask, regmap, Pose3(inits.rot[b], inits.trans[b]), bcfg, GRID,
+                                              inner_iters=2) for b in range(B)]
+        eq = all(torch.equal(r.pose.trans[b], o.pose.trans) and torch.equal(r.pose.rot[b], o.pose.rot)
+                 and torch.equal(r.iterations[b], o.iterations) for b, o in enumerate(ones))
+        report(f"batch_align_sharded B={B}", eq, ms, coll, b1, note=f" ({B} calls of newton_align_fused; "
+               f"iterations {r.iterations.tolist()})")
+        assert eq and not coll
+    finally:
+        dist.destroy_process_group()
+    return dict(launches)
+
+
+
 def main():
     import dataclasses
 
@@ -1078,7 +1499,9 @@ def main():
     import simulator_np
     import slamtpu_torch  # noqa: F401  (sets the float32 matmul policy)
     import slamtpu_torch.__main__  # noqa: F401
+    import slamtpu_torch.dist  # noqa: F401
     import slamtpu_torch.fusion  # noqa: F401
+    import slamtpu_torch.runtime.live  # noqa: F401
 
     assert not torch.cuda.is_initialized(), "importing the port started a CUDA context"
     from slamtpu_torch import cuda_build
@@ -1107,7 +1530,7 @@ def main():
         t0 = time.perf_counter()
         gt = simulator_np.simulate_replay(path, cfg.meta, cfg.lidar, n_sweeps=N_SWEEPS, skewed=True)
         log(f"simulated {N_SWEEPS} skewed sweeps in {time.perf_counter() - t0:.1f} s")
-        entries = kernel_phase(torch, path, gt, cfg, dev, card)
+        entries, inp = kernel_phase(torch, path, gt, cfg, dev, card)
         phases = {"lo_svn": (lambda: LoSvnApp(cfg, dev), ("ndt_pair", "aniso_pair"), 0.005)}
         cfg_kd = dataclasses.replace(
             cfg, register=dataclasses.replace(cfg.register, svn_search_method="KDTREE"))
@@ -1135,9 +1558,19 @@ def main():
             for k, v in counts.items():
                 launches[k] += v
         ins_map_phase(torch, path, cfg, dev, card)
-        for counts in (loop_phase(torch, cfg, tconfig, dev, card, tmp), cli_phase(torch, path, card, tmp)):
+        circle = os.path.join(tmp, "loop.rpl")
+        t0 = time.perf_counter()
+        circle_gt = simulator_np.simulate_replay(
+            circle, cfg.meta, cfg.lidar, n_sweeps=LOOP_SWEEPS, skewed=True,
+            traj=simulator_np.ArcTrajectory(v=LOOP_SPEED, yaw_rate=2 * math.pi / LOOP_PERIOD_S))
+        log(f"simulated {LOOP_SWEEPS} skewed sweeps around the circle in {time.perf_counter() - t0:.1f} s")
+        counts, loop_ate = loop_phase(torch, cfg, tconfig, dev, card, circle, circle_gt)
+        for counts in (counts, cli_phase(torch, path, card, tmp),
+                       live_phase(torch, cfg, tconfig, dev, card, circle, circle_gt, loop_ate, tmp),
+                       per_particle_phase(torch, inp, cfg, card), dist_phase(torch, inp, cfg, dev, card, tmp)):
             for k, v in counts.items():
                 launches[k] += v
+        del inp
     posegraph_phase(torch, dev, card)
     for e in entries:
         e["launches"] = launches[e["name"]]

@@ -65,17 +65,9 @@ def to_numpy(named_tuple) -> dict:
     }
 
 
-# reference SvnConfig fields the port carries only at these values
-_FIXED_SVN_FIELDS = {"shared_gather": True}
-
-
 def svn_config_from_fields(fields: Mapping) -> SvnConfig:
     """The port's SvnConfig from the reference SvnConfig's fields
-    (``cfg._asdict()``). Raises on the mode this port does not carry
-    (per-particle gathers)."""
-    for k, v in _FIXED_SVN_FIELDS.items():
-        if k in fields and fields[k] != v:
-            raise NotImplementedError(f"SvnConfig.{k}={fields[k]!r} is not ported")
+    (``cfg._asdict()``)."""
     return SvnConfig(**{k: fields[k] for k in SvnConfig._fields if k in fields})
 
 

@@ -420,7 +420,7 @@ def _objective(out, batched: bool, hess_lambda) -> NdtObjective:
 
 
 def rows_objective(ptsT, table, rows, pose: Pose3, d1, d2, hess_lambda=1e-6, gicp: bool = False,
-                   gicp_max_mahal: float = 9.0, src_covT=None, gate=None) -> NdtObjective:
+                   gicp_max_mahal: float = 9.0, src_covT=None, gate=None, reduce=None) -> NdtObjective:
     """The NDT (or, with ``gicp=True``, the trimmed VGICP) pair math for one
     pose or K poses, point i against mega row ``table[rows[i]]``. In the
     VGICP cost the table is a ``gicp_map`` RegMap's, ``d2`` carries
@@ -430,6 +430,8 @@ def rows_objective(ptsT, table, rows, pose: Pose3, d1, d2, hess_lambda=1e-6, gic
     ``packed`` of a ``gicp_map_aniso`` RegMap) and ``d2`` carries
     max_corr_dist^2. ``gate`` (``gate_params``, NDT and VGICP costs) applies
     the KDTREE radius gate at the pose the rows were looked up at.
+    ``reduce`` maps the kernel's raw (K, 44) sums before ``hess_lambda`` is
+    added (the multi-device layer sums them over the ranks).
     Fields come back batched like ``pose``."""
     params = pose_params(pose, d1, d2, gicp_max_mahal, gicp)
     if src_covT is not None:
@@ -438,6 +440,8 @@ def rows_objective(ptsT, table, rows, pose: Pose3, d1, d2, hess_lambda=1e-6, gic
         out = aniso_pair(params, ptsT, table, rows, src_covT)
     else:
         out = (gicp_pair if gicp else ndt_pair)(params, ptsT, table, rows, gate)
+    if reduce is not None:
+        out = reduce(out)
     return _objective(out, pose.rot.dim() == 3, hess_lambda)
 
 
@@ -491,7 +495,7 @@ def _read_state(it, conv):
 
 def newton_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig,
                        grid_shape: tuple, inner_iters: int = 1, reg_pose: Pose3 = None,
-                       final_eval: bool = False, src_cov=None, _gicp: bool = False,
+                       final_eval: bool = False, src_cov=None, reduce=None, _gicp: bool = False,
                        _gicp_max_mahal: float = 9.0) -> NewtonResult:
     """Newton registration on the fused kernel: NDT; VGICP with _gicp; or,
     with ``src_cov`` ((N, 3, 3) body-frame source covariances), plane-to-plane
@@ -513,30 +517,87 @@ def newton_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: Newt
     ``cfg.kd_radius`` > 0 (the KDTREE search mode) gates the NDT and VGICP
     costs' slots at the pose of each lookup, which the outer iteration's
     inner steps share; the plane-to-plane cost takes no gate (the
-    reference's ``gicp_align_aniso`` applies none)."""
-    d1, d2, _ = gauss_constants(cfg.resolution, cfg.outlier_ratio)
-    if _gicp or src_cov is not None:
-        d2 = float(cfg.gicp_max_corr_dist) ** 2  # the d2 slot carries the distance gate
-    f32 = torch.float32
-    points, mask = sanitize_points(points, mask)
-    ptsT = points.to(f32).t().contiguous()
-    dev = ptsT.device
-    scovT = None if src_cov is None else src_cov.reshape(-1, 9).t().contiguous().to(f32)
+    reference's ``gicp_align_aniso`` applies none). ``reduce`` maps each
+    evaluation's raw kernel sums (``rows_objective``): the multi-device
+    layer passes a sum over the ranks, whose equal results give every rank
+    the same loop decisions."""
+    run = _FusedNewton(points, mask, regmap, init_pose, cfg, grid_shape, inner_iters, reg_pose,
+                       src_cov, reduce, _gicp, _gicp_max_mahal)
+    it_h, conv_h = 0, False
+    while it_h < cfg.max_iterations and not conv_h:
+        run.outer_iteration()
+        it_h, conv_h = _read_state(run.it, run.conv)
+    return run.result(final_eval)
 
-    kd_radius = cfg.kd_radius if src_cov is None else 0.0
 
-    def evaluate(pose, rows):
-        return rows_objective(ptsT, regmap.packed, rows[0], pose, d1, d2, cfg.hess_lambda,
-                              gicp=_gicp, gicp_max_mahal=_gicp_max_mahal, src_covT=scovT,
-                              gate=rows[1])
+def newton_align_fused_batch(points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig,
+                             grid_shape: tuple, inner_iters: int = 1,
+                             final_eval: bool = False) -> NewtonResult:
+    """B scans (points (B, N, 3), mask (B, N), init_pose (B,)-batched)
+    against one RegMap, each equal to its own ``newton_align_fused``: the
+    outer iterations run in lockstep, a scan that has converged or spent
+    its iterations freezes (the reference's vmapped while loop), and one
+    host read per outer iteration covers the whole batch. Each step
+    launches the NDT pair kernel at K = 1 once per running scan, with that
+    scan's rows (a launch takes one point set). Fields come back batched."""
+    runs = [_FusedNewton(points[b], mask[b], regmap, Pose3(init_pose.rot[b], init_pose.trans[b]), cfg,
+                         grid_shape, inner_iters)
+            for b in range(points.shape[0])]
+    running = runs if cfg.max_iterations > 0 else []
+    while running:
+        for run in running:
+            run.outer_iteration()
+        HOST_READS["newton"] += 1
+        state = torch.stack([torch.stack([r.it, r.conv.to(torch.int32)]) for r in runs]).tolist()
+        running = [r for r, (it, conv) in zip(runs, state) if it < cfg.max_iterations and not conv]
+    res = [r.result(final_eval) for r in runs]
+    return NewtonResult(Pose3(torch.stack([r.pose.rot for r in res]), torch.stack([r.pose.trans for r in res])),
+                        *(torch.stack(f) for f in list(zip(*res))[1:]))
 
-    def lookup(pose):
+
+class _FusedNewton:
+    """One registration of ``newton_align_fused``, an outer iteration at a
+    time: its pose, applied-step count ``it``, convergence flag ``conv`` and
+    the last applied step's objective, all on the device."""
+
+    def __init__(self, points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig,
+                 grid_shape: tuple, inner_iters: int, reg_pose: Pose3 = None, src_cov=None,
+                 reduce=None, gicp: bool = False, gicp_max_mahal: float = 9.0):
+        d1, d2, _ = gauss_constants(cfg.resolution, cfg.outlier_ratio)
+        if gicp or src_cov is not None:
+            d2 = float(cfg.gicp_max_corr_dist) ** 2  # the d2 slot carries the distance gate
+        f32 = torch.float32
+        self.points, self.mask = sanitize_points(points, mask)
+        self.ptsT = self.points.to(f32).t().contiguous()
+        dev = self.ptsT.device
+        self.scovT = None if src_cov is None else src_cov.reshape(-1, 9).t().contiguous().to(f32)
+        self.kd_radius = cfg.kd_radius if src_cov is None else 0.0
+        self.regmap, self.cfg, self.grid_shape, self.inner_iters = regmap, cfg, grid_shape, inner_iters
+        self.reg_pose, self.reduce, self.gicp, self.gicp_max_mahal = reg_pose, reduce, gicp, gicp_max_mahal
+        self.d1, self.d2 = d1, d2
+        self.budget = torch.full((), cfg.gather_stale_frac * cfg.resolution, dtype=f32, device=dev)
+        self.pose = se3.cast(init_pose, f32)
+        self.it = torch.zeros((), dtype=torch.int32, device=dev)
+        self.conv = torch.zeros((), dtype=torch.bool, device=dev)
+        self.obj = NdtObjective(torch.zeros((), dtype=f32, device=dev),
+                                torch.zeros(6, dtype=f32, device=dev),
+                                torch.zeros((6, 6), dtype=f32, device=dev),
+                                torch.zeros((), dtype=torch.int32, device=dev))
+
+    def evaluate(self, pose, rows):
+        return rows_objective(self.ptsT, self.regmap.packed, rows[0], pose, self.d1, self.d2,
+                              self.cfg.hess_lambda, gicp=self.gicp, gicp_max_mahal=self.gicp_max_mahal,
+                              src_covT=self.scovT, gate=rows[1], reduce=self.reduce)
+
+    def lookup(self, pose):
         """(rows, gate) at ``pose``."""
-        return grid_rows(points, mask, pose, regmap, grid_shape), gate_params(pose, kd_radius)
+        return (grid_rows(self.points, self.mask, pose, self.regmap, self.grid_shape),
+                gate_params(pose, self.kd_radius))
 
-    def one_step(pose, rows):
-        obj = evaluate(pose, rows)
-        grad, hess = regularize_step(pose, obj.grad, obj.hess, obj.n_contrib, cfg, reg_pose)
+    def one_step(self, pose, rows):
+        cfg = self.cfg
+        obj = self.evaluate(pose, rows)
+        grad, hess = regularize_step(pose, obj.grad, obj.hess, obj.n_contrib, cfg, self.reg_pose)
         step = torch.linalg.solve_ex(hess, -grad)[0]
         step = torch.where(torch.isfinite(step).all(), step, 0.0)
         norm = torch.linalg.vector_norm(step)
@@ -545,30 +606,23 @@ def newton_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: Newt
         step = (cfg.step_size * scale) * step
         return se3.retract(pose, step), torch.linalg.vector_norm(step), obj
 
-    budget = torch.full((), cfg.gather_stale_frac * cfg.resolution, dtype=f32, device=dev)
-    pose = se3.cast(init_pose, f32)
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    conv = torch.zeros((), dtype=torch.bool, device=dev)
-    obj = NdtObjective(torch.zeros((), dtype=f32, device=dev),
-                       torch.zeros(6, dtype=f32, device=dev),
-                       torch.zeros((6, 6), dtype=f32, device=dev),
-                       torch.zeros((), dtype=torch.int32, device=dev))
-    it_h, conv_h = 0, False
-    while it_h < cfg.max_iterations and not conv_h:
-        rows = lookup(pose)
-        pose, norm, obj = one_step(pose, rows)
-        moved, applied = norm, torch.ones((), dtype=torch.int32, device=dev)
-        for _ in range(inner_iters - 1):
-            new_pose, stepn, obj2 = one_step(pose, rows)
-            ok = moved + stepn <= budget
+    def outer_iteration(self):
+        """One row lookup and up to ``inner_iters`` steps on its rows."""
+        rows = self.lookup(self.pose)
+        pose, norm, obj = self.one_step(self.pose, rows)
+        moved, applied = norm, torch.ones((), dtype=torch.int32, device=norm.device)
+        for _ in range(self.inner_iters - 1):
+            new_pose, stepn, obj2 = self.one_step(pose, rows)
+            ok = moved + stepn <= self.budget
             pose = se3.where(ok, new_pose, pose)
             norm = torch.where(ok, stepn, norm)
             obj = NdtObjective(*(torch.where(ok, n, o) for n, o in zip(obj2, obj)))
-            moved = torch.where(ok, moved + stepn, moved + budget)
+            moved = torch.where(ok, moved + stepn, moved + self.budget)
             applied = applied + ok.to(torch.int32)
-        it = it + applied
-        conv = norm < cfg.trans_eps
-        it_h, conv_h = _read_state(it, conv)
-    if final_eval:
-        obj = evaluate(pose, lookup(pose))
-    return NewtonResult(pose, obj.hess, obj.score, it, conv, obj.n_contrib)
+        self.pose, self.obj = pose, obj
+        self.it = self.it + applied
+        self.conv = norm < self.cfg.trans_eps
+
+    def result(self, final_eval: bool) -> NewtonResult:
+        obj = self.evaluate(self.pose, self.lookup(self.pose)) if final_eval else self.obj
+        return NewtonResult(self.pose, obj.hess, obj.score, self.it, self.conv, obj.n_contrib)

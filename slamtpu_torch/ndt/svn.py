@@ -1,10 +1,12 @@
 """Stein-Variational-Newton NDT registration: a pose posterior (port of
-slamtpu/ndt/svn.py, the RegMap shared-gather path).
+slamtpu/ndt/svn.py, the RegMap path).
 
 Per iteration: one row lookup at the particle mean; stage 1 evaluates the
 NDT objective for all K particles in ONE launch of the pair kernel, which
 gathers the rows from the RegMap table itself (and, in the KDTREE search
-mode, gates their slots at the mean pose);
+mode, gates their slots at the mean pose). With ``shared_gather=False``
+each particle looks its rows up (and is gated) at its own pose instead,
+one launch at K = 1 per particle;
 stage 2 is the K x K SE(3) RBF kernel, the kernel-averaged force and the
 regularized Hessians, batched 6x6 solves; stage 3 retracts the particles.
 Then an optional MAP polish (Newton steps on the NDT score, or on the
@@ -28,6 +30,7 @@ from ..core.const import constant
 from ..core.se3 import Pose3
 from .constants import gauss_constants
 from .fused_math import gate_params, rows_objective
+from .objective import NdtObjective
 from .regmap import grid_rows
 
 # particle init sigmas around the prior, tangent order [omega, v]
@@ -48,6 +51,9 @@ class SvnConfig(NamedTuple):
     hess_lambda: float = 1e-6  # per-particle NDT Hessian Tikhonov
     svn_hess_lambda: float = 1e-6  # H~ regularization
     cov_eig_floor: float = 1e-9  # final covariance eigenvalue floor
+    # one row lookup at the particle mean for all K particles; False looks up
+    # each particle's rows at its own pose (strict per-particle DIRECT7)
+    shared_gather: bool = True
     # KDTREE search mode: > 0 gates each slot on its centroid's distance from
     # the point at the gather pose (pair with build_regmap_kdtree)
     kd_radius: float = 0.0
@@ -66,17 +72,39 @@ class SvnResult(NamedTuple):
     score: torch.Tensor  # () objective at the published pose
 
 
-def _pairwise_kernel(particles: Pose3, kernel_h: float):
-    """K x K RBF kernel k[l, k] = exp(-|Log(T_l^-1 T_k)|^2 / h) and its
-    gradient k * (-2/h) * Log(T_l^-1 T_k)."""
+def _pairwise_kernel(particles: Pose3, kernel_h: float, columns: Optional[Pose3] = None):
+    """RBF kernel k[l, k] = exp(-|Log(T_l^-1 T_k)|^2 / h) between the rows
+    l of ``particles`` and the columns k of ``columns`` (default the same
+    particles), and its gradient k * (-2/h) * Log(T_l^-1 T_k)."""
+    columns = particles if columns is None else columns
     inv = se3.inverse(particles)
     rel = se3.compose(
         Pose3(inv.rot[:, None], inv.trans[:, None]),
-        Pose3(particles.rot[None, :], particles.trans[None, :]),
+        Pose3(columns.rot[None, :], columns.trans[None, :]),
     )
-    diff = se3.logmap(rel)  # (K, K, 6)
+    diff = se3.logmap(rel)  # (L, K, 6)
     kval = torch.exp(-torch.sum(diff * diff, dim=-1) / kernel_h)
     return kval, kval[..., None] * (-2.0 / kernel_h) * diff
+
+
+class _OneDevice:
+    """The particle loop's view of the ranks on one device: every particle
+    is local and each collective is the identity (``dist.sharded`` passes
+    its process group's)."""
+
+    rank, world = 0, 1
+
+    @staticmethod
+    def gather(particles: Pose3) -> Pose3:
+        return particles
+
+    @staticmethod
+    def reduce_scatter(phi, Ht):
+        return phi, Ht
+
+    @staticmethod
+    def all_reduce(t):
+        return t
 
 
 def _all_finite(x: torch.Tensor, dims) -> torch.Tensor:
@@ -93,11 +121,14 @@ def svn_align_reg(
     src_cov: Optional[torch.Tensor] = None,  # (N, 3, 3) for "gicp_aniso"
     init_noise: Optional[torch.Tensor] = None,  # (K, 6) standard normal
     generator: Optional[torch.Generator] = None,
+    _ranks=_OneDevice,
 ) -> SvnResult:
-    """SVN-NDT on the RegMap layout with the shared gather: each iteration
-    looks up the points' rows once at the particle mean and every particle
-    reuses them (exact while the particle spread stays inside the DIRECT7
-    window). With ``cfg.kd_radius`` > 0 the slots are gated at the mean pose
+    """SVN-NDT on the RegMap layout. With ``cfg.shared_gather`` (default)
+    each iteration looks up the points' rows once at the particle mean and
+    every particle reuses them (exact while the particle spread stays inside
+    the DIRECT7 window); without it every particle looks its rows up at its
+    own pose, and stage 1 launches the pair kernel once per particle. With
+    ``cfg.kd_radius`` > 0 the slots are gated at the pose of their lookup
     (stage 1) and at each NDT polish step's own pose.
 
     The initial particle draws are ``init_noise`` when given (tests pass in
@@ -105,11 +136,21 @@ def svn_align_reg(
     d1, d2, _ = gauss_constants(cfg.resolution, cfg.outlier_ratio)
     ptsT = points.t().contiguous()
 
-    def make_obj(mean_pose):
-        rows = grid_rows(points, mask, mean_pose, regmap, grid_shape)
-        gate = gate_params(mean_pose, cfg.kd_radius)
+    def objective_at(lookup_pose):
+        """The NDT objective on the rows looked up (and gated) at ``lookup_pose``."""
+        rows = grid_rows(points, mask, lookup_pose, regmap, grid_shape)
+        gate = gate_params(lookup_pose, cfg.kd_radius)
         return lambda pose: rows_objective(ptsT, regmap.packed, rows, pose, d1, d2,
                                            cfg.hess_lambda, gate=gate)
+
+    def per_particle(pose):
+        """Each of the (K,) poses on its own rows: K launches at K = 1."""
+        if pose.rot.dim() == 2:
+            return objective_at(pose)(pose)
+        objs = [objective_at(Pose3(r, t))(Pose3(r, t)) for r, t in zip(pose.rot, pose.trans)]
+        return NdtObjective(*(torch.stack(f) for f in zip(*objs)))
+
+    make_obj = objective_at if cfg.shared_gather else (lambda _mean_pose: per_particle)
 
     polish_make_obj = None
     if cfg.polish_iters > 0 and cfg.polish_objective == "gicp_aniso":
@@ -127,35 +168,42 @@ def svn_align_reg(
         init_noise = torch.randn(
             (cfg.num_particles, 6), generator=generator, dtype=points.dtype, device=points.device
         )
-    return _svn_loop(make_obj, points.dtype, prior, init_noise, cfg, polish_make_obj)
+    return _svn_loop(make_obj, points.dtype, prior, init_noise, cfg, polish_make_obj, _ranks)
 
 
 def _svn_loop(make_obj, dtype, prior: Pose3, init_noise, cfg: SvnConfig,
-              polish_make_obj=None) -> SvnResult:
+              polish_make_obj=None, ranks=_OneDevice) -> SvnResult:
+    """The particle flow, the polish and the posterior. ``ranks`` splits
+    the K particles: this rank holds rows ``rank * L .. (rank + 1) * L`` of
+    the draws (L = K / world), gathers every rank's particles for the
+    kernel's columns, and sums the moments and tangents over the ranks."""
     K = cfg.num_particles
+    L = K // ranks.world
     dev = prior.trans.device
     I6 = torch.eye(6, dtype=dtype, device=dev)
     sigmas = constant(INIT_SIGMAS, dtype, dev)
-    prior_b = Pose3(prior.rot.expand(K, 3, 3), prior.trans.expand(K, 3))
-    particles = se3.retract(prior_b, sigmas * init_noise.to(dtype))
+    prior_b = Pose3(prior.rot.expand(L, 3, 3), prior.trans.expand(L, 3))
+    particles = se3.retract(prior_b, sigmas * init_noise[ranks.rank * L:(ranks.rank + 1) * L].to(dtype))
 
     def mean_pose_of(parts):
-        return se3.retract(prior, torch.mean(se3.local(prior_b, parts), dim=0))
+        return se3.retract(prior, ranks.all_reduce(torch.sum(se3.local(prior_b, parts), dim=0)) / K)
 
     mean_pose = prior
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     converged = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(cfg.max_iterations):
-        obj = make_obj(mean_pose)(particles)  # stage 1: K particles, one launch
+        obj = make_obj(mean_pose)(particles)  # stage 1: the L particles, one launch (or L)
         grads = torch.where(_all_finite(obj.grad, 1)[:, None], obj.grad, 0.0)
         hessians = torch.where(_all_finite(obj.hess, 2)[:, None, None], obj.hess, I6)
-        # stage 2: Stein-variational Newton update
-        kval, kgrad = _pairwise_kernel(particles, cfg.kernel_h)
-        phi = (torch.einsum("lk,la->ka", kval, grads) + kgrad.sum(0)) / K
-        Ht = (
-            torch.einsum("lk,lab->kab", kval * kval, hessians)
-            + torch.einsum("lka,lkb->kab", kgrad, kgrad)
-        ) / K + cfg.svn_hess_lambda * I6
+        # stage 2: Stein-variational Newton update; the sums run over the
+        # rows l (these L particles), for every column k (all K)
+        kval, kgrad = _pairwise_kernel(particles, cfg.kernel_h, ranks.gather(particles))
+        phi, Ht = ranks.reduce_scatter(
+            torch.einsum("lk,la->ka", kval, grads) + kgrad.sum(0),
+            torch.einsum("lk,lab->kab", kval * kval, hessians) + torch.einsum("lka,lkb->kab", kgrad, kgrad),
+        )
+        phi = phi / K
+        Ht = Ht / K + cfg.svn_hess_lambda * I6
         updates = torch.linalg.solve_ex(Ht, -phi[..., None])[0][..., 0]
         updates = torch.where(_all_finite(updates, 1)[:, None], updates, 0.0)
         # stage 3: retract, and freeze everything once converged
@@ -163,7 +211,7 @@ def _svn_loop(make_obj, dtype, prior: Pose3, init_noise, cfg: SvnConfig,
         mean_now = mean_pose_of(new_particles)
         delta = torch.linalg.vector_norm(se3.local(mean_pose, mean_now))
         active = ~converged
-        particles = se3.where(active.expand(K), new_particles, particles)
+        particles = se3.where(active.expand(L), new_particles, particles)
         mean_pose = se3.where(active, mean_now, mean_pose)
         iters = iters + active.to(torch.int32)
         converged = converged | (active & (delta < cfg.stop_thresh))
@@ -191,12 +239,12 @@ def _svn_loop(make_obj, dtype, prior: Pose3, init_noise, cfg: SvnConfig,
         score = make_obj(mean_pose)(mean_pose).score.to(torch.float32)
 
     # posterior: sample covariance of the particles' tangents at the pose
-    mean_b = Pose3(mean_pose.rot.expand(K, 3, 3), mean_pose.trans.expand(K, 3))
+    mean_b = Pose3(mean_pose.rot.expand(L, 3, 3), mean_pose.trans.expand(L, 3))
     tangents = se3.local(mean_b, particles)
     if K > 1:
-        centered = tangents - tangents.mean(dim=0, keepdim=True)
-        cov = centered.t() @ centered / (K - 1)
+        centered = tangents - ranks.all_reduce(torch.sum(tangents, dim=0, keepdim=True)) / K
+        cov = ranks.all_reduce(centered.t() @ centered) / (K - 1)
     else:
         cov = torch.diag(1e-6 * sigmas ** 2)
     cov = linalg.eig_floor_psd(cov, cfg.cov_eig_floor)
-    return SvnResult(mean_pose, cov, iters, converged, particles, score)
+    return SvnResult(mean_pose, cov, iters, converged, ranks.gather(particles), score)

@@ -492,3 +492,63 @@ def test_odom_engines_on_the_card_match_the_cpu(dev, engine):
     assert np.linalg.norm([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0], dR[1, 0] - dR[0, 1]]) / 2 < 1e-4
     full, _ = _odom_engine(engine, dev, grid, 30, 1e-4)
     assert bool(full.converged) and float(torch.linalg.vector_norm(full.pose.trans)) < 0.02
+
+
+def _box_regmap(device, grid):
+    target, src, mask, init = _box_scene("cpu")
+    gmap = gaussian_map.build_map(target, torch.ones(len(target), dtype=torch.bool), torch.floor(target.amin(0)) - 8.0,
+                                  1.0, capacity=2048, min_points_per_voxel=4)
+    return _to(build_regmap(gmap, grid_shape=grid), device), src.to(device), mask.to(device), \
+        se3.Pose3(init.rot.to(device), init.trans.to(device))
+
+
+def test_newton_batch_on_the_card_equals_its_scans(dev):
+    """``newton_align_fused_batch`` on the card: each scan equals its own
+    ``newton_align_fused`` bit for bit, one B1 launch a running scan a step,
+    one host read an outer iteration for the batch."""
+    grid = (64, 64, 32)
+    regmap, src, mask, init = _box_regmap(dev, grid)
+    B = 4
+    xi = torch.linspace(0.3, 1.2, B, device=dev)[:, None] * torch.tensor(
+        [0.01, -0.02, 0.03, 0.15, -0.1, 0.08], device=dev)
+    inits = se3.retract(se3.Pose3(init.rot.expand(B, 3, 3), init.trans.expand(B, 3)), xi)
+    cfg = NewtonConfig(resolution=1.0, max_iterations=20)
+    before, reads = dict(fused_math.LAUNCHES), fused_math.HOST_READS["newton"]
+    res = fused_math.newton_align_fused_batch(src.expand(B, -1, -1).contiguous(), mask.expand(B, -1).contiguous(),
+                                              regmap, inits, cfg, grid, inner_iters=2)
+    batch_launches = fused_math.LAUNCHES["ndt_pair"] - before["ndt_pair"]
+    batch_reads = fused_math.HOST_READS["newton"] - reads
+    single_launches, outer = 0, []
+    for b in range(B):
+        before, reads = fused_math.LAUNCHES["ndt_pair"], fused_math.HOST_READS["newton"]
+        one = fused_math.newton_align_fused(src, mask, regmap, se3.Pose3(inits.rot[b], inits.trans[b]), cfg, grid,
+                                            inner_iters=2)
+        single_launches += fused_math.LAUNCHES["ndt_pair"] - before
+        outer.append(fused_math.HOST_READS["newton"] - reads)
+        assert torch.equal(res.pose.rot[b], one.pose.rot) and torch.equal(res.pose.trans[b], one.pose.trans)
+        assert torch.equal(res.iterations[b], one.iterations) and torch.equal(res.hessian[b], one.hessian)
+    assert batch_launches == single_launches > 0 and batch_reads == max(outer)
+
+
+def test_per_particle_svn_on_the_card_matches_the_cpu(dev):
+    """``svn_align_reg(shared_gather=False)``: K launches of B1 at K = 1 an
+    iteration on the card, and the CPU's result within 1e-4 m / 1e-4 rad."""
+    from slamtpu_torch.ndt.svn import SvnConfig, svn_align_reg
+
+    grid = (64, 64, 32)
+    K, T = 6, 5
+    cfg = SvnConfig(resolution=1.0, num_particles=K, max_iterations=T, kernel_h=1.0, step_size=1.0,
+                    shared_gather=False)
+    noise = torch.as_tensor(np.random.default_rng(3).normal(size=(K, 6)), dtype=torch.float32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        regmap, src, mask, init = _box_regmap(d, grid)
+        before = fused_math.LAUNCHES["ndt_pair"]
+        out[d.type] = svn_align_reg(src, mask, regmap, init, cfg, grid, init_noise=noise.to(d))
+        launches = fused_math.LAUNCHES["ndt_pair"] - before
+        assert launches == (K * T + 1 if d.type == "cuda" else 0), launches
+    a, b = out["cuda"], out["cpu"]
+    assert int(a.iterations) == int(b.iterations)
+    np.testing.assert_allclose(a.pose.trans.cpu().numpy(), b.pose.trans.numpy(), rtol=0, atol=1e-4)
+    dR = b.pose.rot.double().numpy().T @ a.pose.rot.cpu().double().numpy()
+    assert np.linalg.norm([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0], dR[1, 0] - dR[0, 1]]) / 2 < 1e-4
