@@ -113,6 +113,20 @@
    ``svn_align_sharded`` (K = 20) and ``batch_align_sharded`` (B = 8
    offsets of one sweep), each against its one-device counterpart (bit
    for bit), with ms a call, collectives and B1 launches.
+16. sorted-key path (``use_regmap=False``): the kernel phase holds the
+   sorted-key objective (``ndt.objective.score_grad_hess``, plain PyTorch,
+   as the JAX package runs it outside any Pallas kernel) against the NDT
+   pair kernel at K = 1 on the rows of a RegMap of the same map and pose
+   (over a grid that holds the whole map), at the kernel checks'
+   tolerances, and prints its device ms an evaluation at K = 1 and K = 20
+   and the K = 20 pass's peak memory; replay phases run lo_svn
+   (``svn_align`` every keyframe on a map built every keyframe; its ATE
+   beside the RegMap run's), odom NDT_OMP (``newton_align``) in DIRECT7
+   and DIRECT1 and odom isotropic GICP (``gicp_align``: the VGICP pair
+   kernel at one step a lookup on the fixed (256, 256, 64) grid); the NDT
+   phases must launch no pair kernel. The dist phase holds
+   ``newton_align_sharded`` (the sorted-key objective summed over one NCCL
+   rank) to ``newton_align`` bit for bit.
 Each replay phase prints the ATE, steady-state keyframes/s, iteration
 counts, host syncs per keyframe, per-stage device times and peak memory.
 The kernel phase also holds the NDT pair kernel at K = 1 against a
@@ -167,6 +181,16 @@ ODOM_PHASES = {  # label: (method, register changes, kernel, ATE bound)
     # isotropic GICP as its DIRECT7 engine
     "NDT_OMP KDTREE": ("NDT_OMP", dict(search_method="KDTREE"), "ndt_pair_gated", 0.010),
     "GICP KDTREE": ("GICP", dict(search_method="KDTREE"), "gicp_pair_gated", 0.050),
+    # the sorted-key path (use_regmap=False), bounds set before its first
+    # card run: NDT_OMP (newton_align, no pair kernel) in DIRECT7 10 mm, twice
+    # its RegMap phase's, since neither package has measured this path at
+    # this width; in DIRECT1 20 mm, as one voxel's basin is coarser (on the
+    # CPU tests' lo_svn replay DIRECT1 reads 10.9 mm in both packages where
+    # DIRECT7 stays within 10 mm); isotropic GICP (gicp_align: B2 at one
+    # step a lookup on the fixed (256, 256, 64) grid) 50 mm, as its RegMap phase
+    "NDT_OMP sorted-key": ("NDT_OMP", dict(use_regmap=False), None, 0.010),
+    "NDT_OMP sorted-key DIRECT1": ("NDT_OMP", dict(use_regmap=False, search_method="DIRECT1"), None, 0.020),
+    "GICP sorted-key": ("GICP", dict(use_regmap=False), "gicp_pair", 0.050),
 }
 # ATE bound of the ligo phases. The reference's ATE on this 12-sweep replay
 # is not measured (its 30-sweep figures are of another accelerator). On an
@@ -182,6 +206,14 @@ RESUME_AFTER = {"lo_svn": 5, "odom NDT_OMP": 6, "ligo parity": 6}
 RESUME_TOL_M, RESUME_TOL_RAD = 1e-4, 1e-4
 # lo_svn in the KDTREE search mode (set before its first card run)
 LO_SVN_KDTREE_ATE_BOUND = 0.010
+# lo_svn on the sorted-key path (svn_align every keyframe, the polish on the
+# NDT score instead of the plane-to-plane cost), set before its first card
+# run: 10 mm, as the other NDT-polished lo_svn phase (KDTREE)
+LO_SVN_SORTED_KEY_ATE_BOUND = 0.010
+# the grid of the RegMap on which the kernel phase holds the NDT pair kernel
+# to the sorted-key objective: it must hold the whole lo_svn map (ranges to
+# 150 m at 1 m voxels), so that both see the same neighbors
+SORTED_KEY_CHECK_GRID = (384, 384, 64)
 # ins_map: keyframes merged before the checkpoint, and the prefix of sweeps
 # whose merged statistics are held to one stats_from_points
 INS_MAP_SPLIT, INS_MAP_PREFIX = 6, 3
@@ -391,6 +423,7 @@ def kernel_inputs(torch, replay_path, gt, cfg, dev):
     d1, d2, _ = gauss_constants(res, cfg.register.svn_outlier_ratio)
     inp = dict(
         N=N, K=K, pts=pts, mask=mask, pose=pose_b, ptsT=pts.t().contiguous(), regmap=regmap,
+        gmap=gmap, d1=d1, d2=d2, particles=particles,
         world_a=world_a, mask_a=scan_a.mask, origin=origin,
         regmap_g=regmap_g, regmap_o=regmap_o, regmap_oa=regmap_oa, regmap_l=regmap_l, ring=ring,
         ptsT_l=scan_l.points.t().contiguous(),
@@ -706,9 +739,10 @@ def timed_pair(torch, a, b):
 
 def replay_phase(torch, label, app, replay_path, gt, card, kernels, ate_bound):
     """``app.run_replay`` with every launch count at 0 and a warning on
-    every host sync; checks that ``kernels`` launched, that every pose and
-    covariance is finite and that the ATE is below ``ate_bound``. Returns
-    the launch counts of the run and its trajectory."""
+    every host sync; checks that ``kernels`` launched (with none named:
+    that no pair kernel launched), that every pose and covariance is finite
+    and that the ATE is below ``ate_bound``. Returns the launch counts of
+    the run, its trajectory and its ATE."""
     import numpy as np
 
     from slamtpu_torch.apps.common import ate_rmse, np_between
@@ -737,6 +771,7 @@ def replay_phase(torch, label, app, replay_path, gt, card, kernels, ate_bound):
     syncs = sum(n for site, n in sites.items() if not site.startswith("device_timer.py"))
     newton_reads = fused_math.HOST_READS["newton"] - newton_reads
     assert all(launches[k] > 0 for k in kernels), (label, launches)
+    assert kernels or not any(launches.values()), (label, launches)
     assert len(traj) == N_SWEEPS - 1, len(traj)
     for e in traj:
         assert np.isfinite(np.asarray(e.pose.rot)).all() and np.isfinite(np.asarray(e.pose.trans)).all()
@@ -762,7 +797,7 @@ def replay_phase(torch, label, app, replay_path, gt, card, kernels, ate_bound):
             f"mean {st['mean_ms']:.3f} ms over {st['n']}")
     log(f"launches in the {label} run: {launches}")
     assert ate < ate_bound, f"{label}: ATE {ate} m"
-    return launches, traj
+    return launches, traj, ate
 
 
 def resume_phase(torch, label, make_app, replay_path, split, continuous, card):
@@ -1365,6 +1400,45 @@ def per_particle_phase(torch, inp, cfg, card):
     return dict(launches)
 
 
+def sorted_key_phase(torch, inp, card):
+    """The sorted-key objective on the kernel phase's sweep and lo_svn map:
+    against the NDT pair kernel at K = 1 at the same pose on the rows of a
+    RegMap of the same map over SORTED_KEY_CHECK_GRID (no overflow, so both
+    see the same neighbors), at the kernel checks' tolerances; device ms an
+    evaluation at K = 1 and at K = 20 (the particles, one batched pass) and
+    the K = 20 pass's peak memory."""
+    from slamtpu_torch.ndt import fused_math, objective
+    from slamtpu_torch.ndt.regmap import build_regmap, grid_rows
+
+    gmap, pts, mask, pose, N = inp["gmap"], inp["pts"], inp["mask"], inp["pose"], inp["N"]
+    d1, d2, particles = inp["d1"], inp["d2"], inp["particles"]
+    regmap = build_regmap(gmap, grid_shape=SORTED_KEY_CHECK_GRID)
+    assert int(regmap.overflow) == 0, int(regmap.overflow)
+    rows = grid_rows(pts, mask, pose, regmap, SORTED_KEY_CHECK_GRID)
+    b1 = fused_math.ndt_pair(inp["p_ndt1"], inp["ptsT"], regmap.packed, rows)
+
+    def evaluate(p):
+        return objective.score_grad_hess(pts, mask, p, gmap, d1, d2, hess_lambda=0.0)
+
+    sk = evaluate(pose)
+    sums = torch.cat([sk.score[None], sk.grad, sk.hess.reshape(36), sk.n_contrib.to(torch.float32)[None]])[None]
+    log("sorted-key objective against the NDT pair kernel (K=1, same map and pose):")
+    max_err = compare(sums, b1)
+    one_ms = time_ms(lambda: evaluate(pose), torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    batched = evaluate(particles)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    assert torch.isfinite(batched.hess).all() and batched.score.shape == (inp["K"],)
+    k_ms = time_ms(lambda: evaluate(particles), torch)
+    log(f"[{card}] sorted-key score_grad_hess: N={N}, max_abs_err {max_err:.6g} against B1 (count "
+        f"{int(sk.n_contrib)}, RegMap grid {SORTED_KEY_CHECK_GRID}); {one_ms:.4f} ms an evaluation at K=1, "
+        f"{k_ms:.4f} ms at K={inp['K']} ({k_ms / inp['K']:.4f} ms a particle); peak memory of the "
+        f"K={inp['K']} pass {peak:.1f} MiB above its inputs")
+
+
 def dist_phase(torch, inp, cfg, dev, card, tmp):
     """The multi-device layer over NCCL at world size 1 (one card) at the
     Berlin width, each function against its one-device counterpart.
@@ -1376,7 +1450,7 @@ def dist_phase(torch, inp, cfg, dev, card, tmp):
     from slamtpu_torch.core.se3 import Pose3
     from slamtpu_torch.mapping import gaussian_map
     from slamtpu_torch.ndt import fused_math
-    from slamtpu_torch.ndt.newton import NewtonConfig
+    from slamtpu_torch.ndt.newton import NewtonConfig, newton_align
     from slamtpu_torch.ndt.svn import SvnConfig, svn_align_reg
 
     if dev.type == "cuda":
@@ -1425,6 +1499,15 @@ def dist_phase(torch, inp, cfg, dev, card, tmp):
         assert eq and coll == {"all_gather": 5}
 
         ncfg = NewtonConfig(resolution=1.0, max_iterations=30)
+        gmap = inp["gmap"]
+        r, ms, coll, b1 = timed(lambda: tdist.newton_align_sharded(pts, mask, gmap, init))
+        one, ms1, _, _ = timed(lambda: newton_align(pts, mask, gmap, init, ncfg))
+        eq = same(r, (one.pose, one.hessian, one.score, one.iterations))
+        moved = float(se3.local(inp["pose"], r[0])[3:].norm())
+        report("newton_align_sharded", eq, ms, coll, b1, ms1,
+               f" ({int(r[3])} iterations, {moved:.6f} m from the true pose; sorted-key objective, no pair kernel)")
+        assert eq and coll == {"all_reduce": int(r[3]) + 1} and b1 == 0 and moved < DIST_POSE_BOUND
+
         r, ms, coll, b1 = timed(lambda: tdist.newton_align_sharded_reg(pts, mask, regmap, init, GRID))
         one, ms1, _, _ = timed(lambda: fused_math.newton_align_fused(pts, mask, regmap, init, ncfg, GRID,
                                                                      final_eval=True))
@@ -1531,15 +1614,18 @@ def main():
         gt = simulator_np.simulate_replay(path, cfg.meta, cfg.lidar, n_sweeps=N_SWEEPS, skewed=True)
         log(f"simulated {N_SWEEPS} skewed sweeps in {time.perf_counter() - t0:.1f} s")
         entries, inp = kernel_phase(torch, path, gt, cfg, dev, card)
+        sorted_key_phase(torch, inp, card)
         phases = {"lo_svn": (lambda: LoSvnApp(cfg, dev), ("ndt_pair", "aniso_pair"), 0.005)}
         cfg_kd = dataclasses.replace(
             cfg, register=dataclasses.replace(cfg.register, svn_search_method="KDTREE"))
         phases["lo_svn KDTREE"] = (lambda: LoSvnApp(cfg_kd, dev), ("ndt_pair_gated",),
                                    LO_SVN_KDTREE_ATE_BOUND)
+        cfg_sk = dataclasses.replace(cfg, register=dataclasses.replace(cfg.register, use_regmap=False))
+        phases["lo_svn sorted-key"] = (lambda: LoSvnApp(cfg_sk, dev), (), LO_SVN_SORTED_KEY_ATE_BOUND)
         for label, (method, change, kernel, bound) in ODOM_PHASES.items():
             phases[f"odom {label}"] = (
                 lambda m=method, c=change: OdomNdtApp(odom_cfg(tconfig, cfg, m, **c), dev, window=6),
-                (kernel,), bound)
+                (kernel,) if kernel else (), bound)
         phases["ligo"] = (lambda: LigoTcApp(ligo_cfg(tconfig, cfg), dev, window=6), ("ndt_pair",),
                           LIGO_ATE_BOUND)
         phases["ligo parity"] = (
@@ -1547,12 +1633,16 @@ def main():
                               window=6),
             ("ndt_pair",), LIGO_ATE_BOUND)
         launches = {k: 0 for k in fused_math.LAUNCHES}
-        continuous = {}
+        continuous, ates = {}, {}
         for label, (make_app, kernels, bound) in phases.items():
-            counts, continuous[label] = replay_phase(torch, label, make_app(), path, gt, card, kernels,
-                                                     bound)
+            counts, continuous[label], ates[label] = replay_phase(torch, label, make_app(), path, gt, card,
+                                                                  kernels, bound)
             for k, v in counts.items():
                 launches[k] += v
+        log(f"[{card}] sorted-key path against the RegMap path, ATE m: " + "; ".join(
+            f"{a} {ates[a]:.6f} vs {b} {ates[b]:.6f}" for a, b in (
+                ("lo_svn sorted-key", "lo_svn"), ("odom NDT_OMP sorted-key", "odom NDT_OMP"),
+                ("odom NDT_OMP sorted-key DIRECT1", "odom NDT_OMP"), ("odom GICP sorted-key", "odom GICP"))))
         for label, split in RESUME_AFTER.items():
             counts = resume_phase(torch, label, phases[label][0], path, split, continuous[label], card)
             for k, v in counts.items():

@@ -164,23 +164,33 @@ def maybe_deskew(scan: ScanBuffer, synced: SyncedFrame, ref_lla, enabled: bool) 
 
 
 _log = logging.getLogger("slamtpu_torch.apps")
-_direct1_warned = False
+_warned: set = set()
 SEARCH_METHODS = ("DIRECT7", "DIRECT1", "KDTREE")
 
 
-def search_radius(method: str, resolution: float) -> float:
+def _warn_once(key, message):
+    if key not in _warned:
+        _warned.add(key)
+        _log.warning(message)
+
+
+def search_radius(method: str, resolution: float, use_regmap: bool = True) -> float:
     """The KDTREE gate's radius of a search method (one resolution, the
     reference's radius search over leaf centroids), 0 for DIRECT7 and
-    DIRECT1. DIRECT1 runs DIRECT7: the reference reads ``use_direct1`` only
-    in its sorted-key objective, never on the RegMap path every app takes,
-    and the port does the same; the first DIRECT1 logs a warning."""
-    global _direct1_warned
+    DIRECT1. As in the reference, each layout honours two of the three
+    modes: on the RegMap path DIRECT1 runs DIRECT7 (``use_direct1`` is read
+    by the sorted-key objective only); on the sorted-key path
+    (``use_regmap=False``) DIRECT1 searches one voxel and KDTREE runs
+    DIRECT7 (the sorted-key objective reads no radius). The first such
+    substitution logs a warning."""
     if method not in SEARCH_METHODS:
         raise ValueError(f"unknown search method {method!r}; known: {SEARCH_METHODS}")
-    if method == "DIRECT1" and not _direct1_warned:
-        _direct1_warned = True
-        _log.warning("search method DIRECT1 runs DIRECT7 on the RegMap path, as in the "
-                     "reference (its use_direct1 is read by the sorted-key objective only)")
+    if use_regmap and method == "DIRECT1":
+        _warn_once("DIRECT1", "search method DIRECT1 runs DIRECT7 on the RegMap path, as in the "
+                   "reference (its use_direct1 is read by the sorted-key objective only)")
+    if not use_regmap and method == "KDTREE":
+        _warn_once("KDTREE", "search method KDTREE runs DIRECT7 on the sorted-key path "
+                   "(use_regmap=False), as in the reference (its sorted-key objective reads no radius)")
     return float(resolution) if method == "KDTREE" else 0.0
 
 
@@ -189,17 +199,21 @@ class MapRebuildCadence:
     periodic, forced when the map origin moves, and forced once after a
     resume (``force_next``: checkpoints do not carry the RegMap). The empty
     cache has the builder's shapes: 6V rows and no aux table when either
-    search method is KDTREE (its builder dilates 27 ways), else 4V."""
+    search method is KDTREE (its builder dilates 27 ways), else 4V. With no
+    ``grid_shape`` (the sorted-key path, ``use_regmap=False``) there is no
+    cache: ``regmap`` is None and the apps build their map every keyframe."""
 
     def __init__(self, register_cfg, grid_shape, device, with_aux: bool = False):
         self._every = max(int(register_cfg.map_rebuild_every), 1)
         self._idx = 0
         self.force_next = False
-        kdtree = "KDTREE" in (register_cfg.search_method, register_cfg.svn_search_method)
-        cap = register_cfg.map_capacity
-        self.regmap = empty_regmap(cap, grid_shape, device,
-                                   dilated_capacity=6 * cap if kdtree else None,
-                                   with_aux=with_aux and not kdtree)
+        self.regmap = None
+        if grid_shape is not None:
+            kdtree = "KDTREE" in (register_cfg.search_method, register_cfg.svn_search_method)
+            cap = register_cfg.map_capacity
+            self.regmap = empty_regmap(cap, grid_shape, device,
+                                       dilated_capacity=6 * cap if kdtree else None,
+                                       with_aux=with_aux and not kdtree)
 
     def tick(self, force: bool = False) -> bool:
         """Advance one keyframe; True when this keyframe must rebuild."""

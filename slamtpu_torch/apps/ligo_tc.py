@@ -7,7 +7,9 @@ Per keyframe (run/pipeline_ligo_tc.cpp:339-622):
 2. register the sweep with Newton NDT against the keyframe window fused at
    its optimized poses (:519-527), from the IMU prediction and with the
    prior-pose pull toward it (setRegularizationPose, :531); the map and
-   RegMap are rebuilt every ``map_rebuild_every`` keyframes;
+   RegMap are rebuilt every ``map_rebuild_every`` keyframes (with
+   ``use_regmap=False``: the map every keyframe and ``newton_align`` on the
+   sorted-key objective, no RegMap);
 3. re-solve the 15-dof window (replaces iSAM2, :578-587): INS pose priors
    with trust-gain scaling (:465-506), the LiDAR between factors, the IMU
    factor chain (:459-463), velocity priors and the initial bias prior.
@@ -22,17 +24,17 @@ reads: one per Newton outer iteration (``fused_math.HOST_READS``) and the
 RegMap overflow count every 32 keyframes.
 
 ``save_checkpoint``/``resume_from`` carry the window, the keyframe ring
-and the host state (``runtime.checkpoint``). Not ported, raising
-NotImplementedError: ``use_regmap=False`` (ROADMAP A, "Do not port
-these").
+and the host state (``runtime.checkpoint``).
 
-Search modes, as the reference: DIRECT1 runs DIRECT7
-(``common.search_radius``). KDTREE (either search method) cannot run in
-the reference: its NewtonConfig sets no radius, so its builder makes the
-DIRECT7 layout (4V rows), while its rebuild cadence caches an empty KDTREE
-layout (6V rows), and the two branches of its rebuild ``lax.cond`` differ
-in shape, a TypeError at the first registration. The port raises at
-construction with that reason.
+Search modes, as the reference: its NewtonConfig sets neither
+``use_direct1`` nor a radius, so DIRECT1 runs DIRECT7 on both paths
+(``common.search_radius`` warns on the RegMap path). On the RegMap path
+KDTREE (either search method) cannot run in the reference: its builder
+makes the DIRECT7 layout (4V rows), while its rebuild cadence caches an
+empty KDTREE layout (6V rows), and the two branches of its rebuild
+``lax.cond`` differ in shape, a TypeError at the first registration. The
+port raises at construction with that reason. On the sorted-key path
+there is no cache, and KDTREE runs DIRECT7 in both packages.
 """
 from __future__ import annotations
 
@@ -80,12 +82,12 @@ def _ligo_step(
     dts,  # (M,) host per-sample dt (<= 0: padding)
     flat,  # (27,) float64 on the device, see FLAT
     rebuild: bool,  # host flag: rebuild the map this keyframe
-    regmap_in,  # the RegMap of the last rebuild
+    regmap_in,  # the RegMap of the last rebuild (None on the sorted-key path)
     noise: ImuNoise,
     cfg: NewtonConfig,
     capacity: int,
     min_points: int,
-    grid_shape: tuple,
+    grid_shape: tuple,  # None: the sorted-key path (map every keyframe)
     inner_iters: int = 2,
     final_eval: bool = False,  # see odom_ndt._register_step
     timer=None,
@@ -104,15 +106,17 @@ def _ligo_step(
         predicted = predict(NavState(prev_pose, flat[12:15]), bias, pim, flat[21:24])
         pred32 = se3.cast(predicted.pose, f32)
     K, N, _ = kf_points.shape
+    sorted_key = grid_shape is None
     world = None
-    if rebuild:  # only a rebuild reads the target
+    if rebuild or sorted_key:  # only a build reads the target
         wposes = Pose3(kf_poses[:, 0:9].reshape(K, 3, 3).to(f32), kf_poses[:, 9:12].to(f32))
         world = se3.transform_points(wposes, kf_points).reshape(K * N, 3)
-    res, regmap = _register_step(
+    out = _register_step(
         world, kf_mask.reshape(K * N), new_points, new_mask, pred32, flat[24:27].to(f32), cfg,
         capacity, min_points, grid_shape, inner_iters=inner_iters, final_eval=final_eval,
-        timer=timer, reg_pose=pred32, regmap_cache=regmap_in, rebuild=rebuild,
+        timer=timer, reg_pose=pred32, regmap_cache=None if sorted_key else regmap_in, rebuild=rebuild,
     )
+    res, regmap = (out, regmap_in) if sorted_key else out
     dt = flat.dtype
     return regmap, torch.cat([
         pim.dR.reshape(-1), pim.dv, pim.dp, pim.dt.reshape(1), pim.dR_dbg.reshape(-1),
@@ -133,17 +137,19 @@ class LigoTcApp:
     def __post_init__(self):
         self.device = torch.device(self.device)
         reg = self.cfg.register
-        if not reg.use_regmap:
-            raise NotImplementedError("use_regmap=False (the sorted-key objective) is not ported "
-                                      "(ROADMAP A, 'Do not port these')")
-        if "KDTREE" in (reg.search_method, reg.svn_search_method):
+        if reg.use_regmap and "KDTREE" in (reg.search_method, reg.svn_search_method):
             cap = reg.map_capacity
             raise ValueError(
                 "ligo_tc cannot run the KDTREE search mode, as in the reference: its Newton "
                 f"builds the DIRECT7 RegMap ({4 * cap + 1} rows) while the rebuild cache holds the "
                 f"KDTREE shape ({6 * cap + 1} rows), and the reference's rebuild lax.cond fails "
                 "on that shape mismatch")
-        search_radius(reg.search_method, reg.ndt_resolution)  # DIRECT1 runs DIRECT7, with a warning
+        # the Newton config takes no search method: DIRECT1 (and, on the
+        # sorted-key path, KDTREE) runs DIRECT7, with a warning
+        search_radius(reg.search_method, reg.ndt_resolution, reg.use_regmap)
+        if not reg.use_regmap and reg.search_method == "DIRECT1":
+            log.warning("ligo_tc's Newton takes no search method: DIRECT1 runs DIRECT7 on the "
+                        "sorted-key path too, as in the reference")
         self.ingest = IngestPipeline(self.cfg, self.device)
         self.newton_cfg = NewtonConfig(
             resolution=reg.ndt_resolution,
@@ -156,7 +162,8 @@ class LigoTcApp:
         )
         self.noise = ImuNoise.from_imu_config(self.cfg.imu, self.device)
         self.smoother_cfg = SmootherConfig(iterations=SMOOTHER_ITERATIONS, solver=reg.smoother_solver)
-        self.grid_shape = tuple(reg.reg_grid_shape)
+        # None: the sorted-key path (map built every keyframe, no RegMap)
+        self.grid_shape = tuple(reg.reg_grid_shape) if reg.use_regmap else None
         self.trajectory: List[TrajectoryEntry] = []
         self.stats = StatsArchive()
         self.viz = None  # Optional[common.VizHook], set by the command line's --viz
@@ -292,7 +299,7 @@ class LigoTcApp:
                 reg.fused_inner_iters, timer=self.device_timer,
             )
             out = torch.cat([out, scan.num_points.reshape(1).to(out.dtype)]).cpu().numpy()
-        if (self._cadence._idx & 31) == 1:
+        if self._cadence.regmap is not None and (self._cadence._idx & 31) == 1:
             ovf = int(self._cadence.regmap.overflow)
             if ovf and not self._ovf_warned:
                 self._ovf_warned = True

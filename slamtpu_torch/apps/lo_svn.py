@@ -15,6 +15,12 @@ pose, and the polish stays on the NDT score (the layout has no aux table),
 as in the reference. DIRECT1 runs DIRECT7, as the reference's RegMap path
 does (``common.search_radius``).
 
+With ``use_regmap=False`` (the sorted-key path, as the reference's
+``grid_shape=None``) every keyframe builds the NDT map and runs
+``svn_align``: the K particles in one batched pass of the sorted-key
+objective, DIRECT1 searching one voxel, and the polish on that objective;
+no RegMap, no source covariances, and the rebuild cadence does not apply.
+
 ``save_checkpoint``/``resume_from`` carry the ring, the origin and the
 particle generator (``runtime.checkpoint``).
 """
@@ -35,7 +41,7 @@ from ..lidar.project import project_frame_packed
 from ..mapping import gaussian_map
 from ..ndt.gicp import regularize_plane_covariance, sweep_point_covariances
 from ..ndt.regmap import build_regmap, build_regmap_kdtree
-from ..ndt.svn import SvnConfig, svn_align_reg
+from ..ndt.svn import SvnConfig, svn_align, svn_align_reg
 from ..runtime import checkpoint
 from ..runtime.config import PipelineConfig
 from ..runtime.device_timer import DeviceStageTimer
@@ -71,11 +77,11 @@ def _lo_svn_core(
     ins_anchor: bool,  # ring clouds enter at the INS prior (else the published pose)
     head: int,  # ring slot to overwrite
     init_noise,  # (K, 6) standard-normal particle draws
-    regmap_in,  # RegMap of the last rebuild
+    regmap_in,  # RegMap of the last rebuild (None on the sorted-key path)
     svn_cfg: SvnConfig,
     capacity: int,
     min_points: int,
-    grid_shape: tuple,
+    grid_shape: tuple,  # None: the sorted-key path (use_regmap=False)
     publish_svn: bool = True,
     scan_grid: tuple = None,  # (cols, sub) of the sweep: stencil covariances (else voxel ones)
     exclude_recent: Optional[int] = None,  # rebuilds skip the newest ring clouds
@@ -84,22 +90,28 @@ def _lo_svn_core(
     """One keyframe on a projected sweep: (new regmap, KeyframeResult).
 
     The map and RegMap rebuild only on rebuild keyframes; in between the
-    registration targets the cached RegMap."""
+    registration targets the cached RegMap. With no ``grid_shape`` the map
+    is built on every keyframe and ``svn_align`` registers against it; the
+    RegMap cache passes through untouched."""
     W, N, _ = kf_points.shape
     bmask = kf_mask
     if exclude_recent is not None:
         # ring age of slot s: 0 = newest (slot head - 1), W - 1 = oldest
         ages = torch.remainder(head - 1 - torch.arange(W, device=kf_mask.device), W)
         bmask = kf_mask & (ages >= exclude_recent)[:, None]
-    aniso = svn_cfg.polish_iters > 0 and svn_cfg.polish_objective == "gicp_aniso"
+    sorted_key = grid_shape is None
+    aniso = not sorted_key and svn_cfg.polish_iters > 0 and svn_cfg.polish_objective == "gicp_aniso"
     regmap = regmap_in
-    if rebuild:
+    n_voxels = None
+    if rebuild or sorted_key:
         with _span(timer, "map_rebuild"):
             gmap = gaussian_map.build_map(
                 kf_points.reshape(W * N, 3), bmask.reshape(W * N), origin, svn_cfg.resolution,
                 capacity=capacity, min_points_per_voxel=min_points,
             )
-            if svn_cfg.kd_radius > 0.0:
+            if sorted_key:
+                n_voxels = gmap.num_valid()
+            elif svn_cfg.kd_radius > 0.0:
                 regmap = build_regmap_kdtree(gmap, grid_shape=grid_shape)
             else:
                 aux = None
@@ -113,8 +125,12 @@ def _lo_svn_core(
             src_cov = sweep_point_covariances(new_points, new_mask, scan_grid, svn_cfg.resolution,
                                               capacity, min_points)
     with _span(timer, "svn"):
-        res = svn_align_reg(new_points, new_mask, regmap, prior, svn_cfg, grid_shape,
-                            src_cov=src_cov, init_noise=init_noise)
+        if sorted_key:
+            res = svn_align(new_points, new_mask, gmap, prior, svn_cfg, init_noise=init_noise)
+        else:
+            res = svn_align_reg(new_points, new_mask, regmap, prior, svn_cfg, grid_shape,
+                                src_cov=src_cov, init_noise=init_noise)
+            n_voxels = regmap.num_valid
     published = res.pose if publish_svn else prior
     with _span(timer, "ring_insert"):
         anchor = prior if ins_anchor else published
@@ -122,7 +138,7 @@ def _lo_svn_core(
         kf_points[head] = se3.transform_points(anchor, new_points)
         kf_mask[head] = new_mask
     return regmap, KeyframeResult(published, res.covariance, res.iterations, res.converged,
-                                  regmap.num_valid, res.score)
+                                  n_voxels, res.score)
 
 
 def _lo_svn_step_packed(
@@ -166,11 +182,7 @@ class LoSvnApp:
     def __post_init__(self):
         self.device = torch.device(self.device)
         reg = self.cfg.register
-        # the parts of the reference app this port does not carry
-        if not reg.use_regmap:
-            raise NotImplementedError("use_regmap=False (the sorted-key svn_align path) is not "
-                                      "ported (ROADMAP A, 'Do not port these')")
-        kd_radius = search_radius(reg.svn_search_method, reg.svn_resolution)
+        kd_radius = search_radius(reg.svn_search_method, reg.svn_resolution, reg.use_regmap)
         self.ingest = IngestPipeline(self.cfg, self.device)
         self.svn_cfg = SvnConfig(
             resolution=reg.svn_resolution,
@@ -187,7 +199,8 @@ class LoSvnApp:
             polish_objective=reg.svn_polish_objective if kd_radius <= 0.0 else "ndt",
             polish_from=reg.svn_polish_from,
         )
-        self.grid_shape = tuple(reg.reg_grid_shape)
+        # None: the sorted-key path (map built every keyframe, no RegMap)
+        self.grid_shape = tuple(reg.reg_grid_shape) if reg.use_regmap else None
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
         self._trajectory: List[TrajectoryEntry] = []
@@ -240,7 +253,7 @@ class LoSvnApp:
     def flush(self):
         """Read back the in-flight keyframe results and record them."""
         pending, self._pending = self._pending, []
-        if pending:
+        if pending and self._cadence.regmap is not None:
             ovf = int(self._cadence.regmap.overflow)
             if ovf and not self._ovf_warned:
                 self._ovf_warned = True

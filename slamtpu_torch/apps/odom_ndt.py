@@ -25,10 +25,17 @@ pair kernel, and isotropic GICP gates the VGICP pair kernel over its
 DIRECT7 ``gicp_map`` table (the reference's fused contract; its XLA path
 skips the gate); SVNNDT takes ``svn_search_method`` the same way.
 Anisotropic GICP and NDT_OMP_MULTIRES ignore the mode. DIRECT1 runs
-DIRECT7 (``common.search_radius``). The sorted-key path
-(use_regmap=False; ROADMAP A, "Do not port these") raises
-NotImplementedError. ``save_checkpoint``/``resume_from`` carry the window
-and the host state (``runtime.checkpoint``).
+DIRECT7 (``common.search_radius``). ``save_checkpoint``/``resume_from``
+carry the window and the host state (``runtime.checkpoint``).
+
+With ``use_regmap=False`` (the sorted-key path, the reference's
+``grid_shape=None``) the engines run as the reference's do there: NDT_OMP
+is ``newton_align`` and SVNNDT ``svn_align`` on the sorted-key objective
+against the keyframe's Gaussian map (DIRECT1 searching one voxel, KDTREE
+running DIRECT7); isotropic GICP is ``gicp_align`` (one Newton step a
+lookup, no KDTREE gate) and anisotropic GICP and NDT_OMP_MULTIRES run as
+before, all three on a RegMap over the fixed grid ``SORTED_KEY_GRID``
+instead of ``reg_grid_shape``.
 
 With ``loop_closure=True`` a ``LoopDetector`` takes each keyframe's cloud
 (its own copy, on the device) at its optimized pose as the host reads it,
@@ -46,7 +53,8 @@ TPU.) The window fill count ``n`` is a host integer: it advances by one per
 keyframe up to the window size, so no device value decides it.
 
 Host syncs per keyframe in this module: one per Newton outer iteration
-(the loop's exit test; none for SVNNDT), one in ``torch.linalg.eigh`` (the
+(the loop's exit test; one per step for ``newton_align``; none for
+SVNNDT), one in ``torch.linalg.eigh`` (the
 LiDAR covariance floor), and the lagged read of the result vector and the
 point count. The map and RegMap build adds its own (``ndt/regmap.py``).
 """
@@ -67,12 +75,12 @@ from ..fusion.graph import sqrt_info_from_cov
 from ..fusion.loop_closure import LoopClosureConfig, LoopDetector, refine_trajectory
 from ..fusion.smoother import optimize_pose_window, pose_marginal_covariance
 from ..mapping import gaussian_map
-from ..ndt.fused_math import gicp_align_aniso, newton_align_fused
+from ..ndt.fused_math import gicp_align, gicp_align_aniso, newton_align_fused
 from ..ndt.gicp import gicp_map, gicp_map_aniso, sweep_point_covariances
 from ..ndt.multires import build_pyramid, multires_align
-from ..ndt.newton import NewtonConfig, NewtonResult
+from ..ndt.newton import NewtonConfig, NewtonResult, newton_align
 from ..ndt.regmap import RegMap, build_regmap, build_regmap_kdtree
-from ..ndt.svn import SvnConfig, SvnResult, svn_align_reg
+from ..ndt.svn import SvnConfig, SvnResult, svn_align, svn_align_reg
 from ..runtime import checkpoint
 from ..runtime.config import PipelineConfig
 from ..runtime.device_timer import DeviceStageTimer
@@ -87,6 +95,9 @@ KNOWN_METHODS = ("NDT_OMP", "SVNNDT", "GICP", "NDT_OMP_MULTIRES")
 # seeds the SVNNDT particle draws; the reference seeds its key with the same
 # number (PRNGKey(1234), slamtpu/apps/odom_ndt.py:501)
 PARTICLE_SEED = 1234
+# the RegMap grid of the GICP engines and the pyramid on the sorted-key path
+# (the reference's ``grid_shape or (256, 256, 64)``)
+SORTED_KEY_GRID = (256, 256, 64)
 
 
 def _register_step(
@@ -99,7 +110,7 @@ def _register_step(
     cfg: NewtonConfig,
     capacity: int,
     min_points: int,
-    grid_shape: tuple,
+    grid_shape: tuple,  # None: the sorted-key path (use_regmap=False)
     method: str = "NDT_OMP",
     inner_iters: int = 2,
     final_eval: bool = False,
@@ -129,16 +140,24 @@ def _register_step(
     With ``regmap_cache`` (NDT_OMP) the map and RegMap are built only when
     the host flag ``rebuild`` is set, in the cache's dtypes, and the call
     returns ``(result, regmap)`` so the caller carries the cache forward
-    (RegisterConfig.map_rebuild_every)."""
+    (RegisterConfig.map_rebuild_every).
+
+    With no ``grid_shape`` (the sorted-key path) NDT_OMP and SVNNDT
+    register on the Gaussian map itself (``newton_align``, ``svn_align``),
+    isotropic GICP takes ``gicp_align``'s contract, and the GICP engines and
+    the pyramid build their RegMaps over ``SORTED_KEY_GRID``."""
+    sorted_key = grid_shape is None
     if method == "NDT_OMP_MULTIRES":
         with _span(timer, "map_build"):
             levels = build_pyramid(
                 target_points, target_mask, origin, [2.0 * cfg.resolution, cfg.resolution],
-                capacity, grid_shape, min_points, [max(cfg.max_iterations // 3, 3), cfg.max_iterations],
+                capacity, grid_shape or SORTED_KEY_GRID, min_points,
+                [max(cfg.max_iterations // 3, 3), cfg.max_iterations],
             )
         with _span(timer, "newton"):
             return multires_align(new_points, new_mask, levels, init_guess)
     aniso = method == "GICP" and cfg.gicp_aniso
+    reg_grid = grid_shape or SORTED_KEY_GRID
     regmap = regmap_cache
     if regmap_cache is None or rebuild:
         with _span(timer, "map_build"):
@@ -152,20 +171,31 @@ def _register_step(
                 gmap = gicp_map(gmap)
             elif kd_radius > 0.0:
                 build = build_regmap_kdtree
-            regmap = build(gmap, grid_shape=grid_shape)
+            if method == "GICP" or not sorted_key:  # the sorted-key NDT engines search gmap itself
+                regmap = build(gmap, grid_shape=reg_grid)
             if regmap_cache is not None:
                 regmap = RegMap(*(None if a is None else a.to(c.dtype)
                                   for a, c in zip(regmap, regmap_cache)))
     if method == "SVNNDT":
         with _span(timer, "svn"):
-            res = _svn_as_newton(svn_align_reg(new_points, new_mask, regmap, init_guess, svn_cfg,
-                                               grid_shape, init_noise=init_noise), new_points.dtype)
+            if sorted_key:
+                sv = svn_align(new_points, new_mask, gmap, init_guess, svn_cfg, init_noise=init_noise)
+            else:
+                sv = svn_align_reg(new_points, new_mask, regmap, init_guess, svn_cfg, grid_shape,
+                                   init_noise=init_noise)
+            res = _svn_as_newton(sv, new_points.dtype)
     elif aniso:
         with _span(timer, "src_covariances"):
             src_cov = sweep_point_covariances(new_points, new_mask, scan_grid, cfg.resolution,
                                               capacity, min_points)
         with _span(timer, "newton"):
-            res = gicp_align_aniso(new_points, new_mask, src_cov, regmap, init_guess, cfg, grid_shape)
+            res = gicp_align_aniso(new_points, new_mask, src_cov, regmap, init_guess, cfg, reg_grid)
+    elif sorted_key:
+        with _span(timer, "newton"):
+            if method == "GICP":
+                res = gicp_align(new_points, new_mask, regmap, init_guess, cfg, reg_grid)
+            else:
+                res = newton_align(new_points, new_mask, gmap, init_guess, cfg, reg_pose=reg_pose)
     else:
         with _span(timer, "newton"):
             res = newton_align_fused(new_points, new_mask, regmap, init_guess, cfg, grid_shape,
@@ -341,11 +371,6 @@ class OdomNdtApp:
             self.method = reg.method
         if self.method not in KNOWN_METHODS:
             raise ValueError(f"unknown registration method {self.method!r}; known: {KNOWN_METHODS}")
-        # the parts of the reference app this port does not carry: they
-        # raise instead of running something else
-        if not reg.use_regmap:
-            raise NotImplementedError("use_regmap=False (the sorted-key objective) is not ported "
-                                      "(ROADMAP A, 'Do not port these')")
         self.ingest = IngestPipeline(self.cfg, self.device)
         self.newton_cfg = NewtonConfig(
             resolution=reg.ndt_resolution,
@@ -355,7 +380,7 @@ class OdomNdtApp:
             else reg.ndt_transform_epsilon,
             use_direct1=reg.search_method == "DIRECT1",
             # KDTREE: radius search over leaf centroids at one resolution
-            kd_radius=search_radius(reg.search_method, reg.ndt_resolution),
+            kd_radius=search_radius(reg.search_method, reg.ndt_resolution, reg.use_regmap),
             gicp_max_corr_dist=reg.gicp_corr_dist_threshold,
             gicp_aniso=reg.gicp_source_cov == "anisotropic",
         )
@@ -377,7 +402,7 @@ class OdomNdtApp:
                 step_size=reg.svn_step_size,
                 stop_thresh=reg.svn_stop_thresh,
                 use_direct1=reg.svn_search_method == "DIRECT1",
-                kd_radius=search_radius(reg.svn_search_method, reg.svn_resolution),
+                kd_radius=search_radius(reg.svn_search_method, reg.svn_resolution, reg.use_regmap),
                 polish_iters=reg.svn_polish_iters,
                 # the RegMap carries no aux payload: the target is rebuilt
                 # every keyframe, so the polish stays on the NDT score
@@ -385,7 +410,8 @@ class OdomNdtApp:
             )
             self.generator = torch.Generator(device=self.device)
             self.generator.manual_seed(PARTICLE_SEED)
-        self.grid_shape = tuple(reg.reg_grid_shape)
+        # None: the sorted-key path (no RegMap for the NDT engines)
+        self.grid_shape = tuple(reg.reg_grid_shape) if reg.use_regmap else None
         # multi-viewpoint registration target, clamped to the smoother window
         self.tgt_window = max(1, min(int(reg.odom_target_window), self.window))
         self.tgt_exclude = max(0, min(int(reg.odom_target_exclude), self.tgt_window - 1))

@@ -3,6 +3,7 @@ from .sharded import (
     batch_align_sharded,
     build_map_sharded,
     lo_train_step,
+    newton_align_sharded,
     newton_align_sharded_fused,
     newton_align_sharded_reg,
     svn_align_sharded,
@@ -12,6 +13,7 @@ __all__ = [
     "COLLECTIVES",
     "batch_align_sharded",
     "build_map_sharded",
+    "newton_align_sharded",
     "newton_align_sharded_fused",
     "newton_align_sharded_reg",
     "svn_align_sharded",

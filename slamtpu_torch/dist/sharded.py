@@ -12,9 +12,7 @@ gets the result replicated on every rank; ``batch_align_sharded`` alone
 returns each rank's own scans, as the reference's sharded output does.
 The process group takes the mesh's place, so ``make_mesh`` has no
 counterpart: the caller runs ``torch.distributed.init_process_group``
-(gloo on the CPU, NCCL on cards, one rank a card). ``newton_align_sharded``
-is not ported: it runs the sorted-key objective, which the port does not
-carry.
+(gloo on the CPU, NCCL on cards, one rank a card).
 
 Every rank takes the same host-side decisions (Newton's continue test) from
 the same bits: a collective gives every rank equal results, and each rank
@@ -34,7 +32,7 @@ from ..core.se3 import Pose3
 from ..mapping import gaussian_map
 from ..mapping.gaussian_map import GaussianMap, VoxelStats
 from ..ndt import fused_math
-from ..ndt.newton import NewtonConfig, NewtonResult
+from ..ndt.newton import NewtonConfig, NewtonResult, newton_align
 from ..ndt.regmap import RegMap, build_regmap
 from ..ndt.svn import SvnConfig, SvnResult, svn_align_reg
 
@@ -97,6 +95,23 @@ def build_map_sharded(points, mask, origin, resolution: float, capacity: int,
 
 def _sum_ranks(group):
     return lambda sums: _all_reduce(sums, group)
+
+
+def newton_align_sharded(points, mask, gmap: GaussianMap, init_pose: Pose3, resolution: float = 1.0,
+                         outlier_ratio: float = 0.55, max_iterations: int = 30, trans_eps: float = 1e-4,
+                         hess_lambda: float = 1e-6, group=None):
+    """Newton NDT on the sorted-key objective (DIRECT7, as the reference
+    hard-codes) with the objective summed over the ranks: each evaluation
+    is this rank's points against the replicated Gaussian map
+    (``newton.newton_align``), then one all_reduce of the packed (score,
+    grad, Hessian, count), with ``hess_lambda`` added once after the sum;
+    the 6x6 solve and retract run on every rank. Steps are clamped to norm
+    1; score and Hessian are evaluated again at the returned pose. Returns
+    (pose, hessian, score, iterations)."""
+    cfg = NewtonConfig(resolution=resolution, outlier_ratio=outlier_ratio, max_iterations=max_iterations,
+                       trans_eps=trans_eps, hess_lambda=hess_lambda)
+    res = newton_align(points, mask, gmap, init_pose, cfg, reduce=_sum_ranks(group))
+    return res.pose, res.hessian, res.score, res.iterations
 
 
 def newton_align_sharded_reg(points, mask, regmap: RegMap, init_pose: Pose3, grid_shape: tuple,

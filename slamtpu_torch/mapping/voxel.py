@@ -19,12 +19,13 @@ INVALID_KEY = int(np.iinfo(np.int32).max)
 _I32_LO = -2147483648.0
 _I32_HI = 2147483520.0
 
-# DIRECT7 neighbor offsets: center + 6 face neighbors (numpy, so importing
-# this module touches no device)
+# DIRECT7 neighbor offsets: center + 6 face neighbors, and DIRECT1's center
+# alone (numpy, so importing this module touches no device)
 DIRECT7_OFFSETS = np.array(
     [[0, 0, 0], [1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]],
     dtype=np.int32,
 )
+DIRECT1_OFFSETS = np.zeros((1, 3), dtype=np.int32)
 
 
 def floor_to_int32(x: torch.Tensor) -> torch.Tensor:
@@ -53,6 +54,26 @@ def unpack(key: torch.Tensor) -> torch.Tensor:
     y = torch.remainder(rem, GRID_DIM)
     x = torch.div(rem, GRID_DIM, rounding_mode="floor")
     return torch.stack([x, y, z], dim=-1)
+
+
+def key_of_points(points: torch.Tensor, origin: torch.Tensor, inv_resolution,
+                  valid: torch.Tensor = None) -> torch.Tensor:
+    """Packed keys of points, INVALID_KEY where ``valid`` is False."""
+    key = pack(coords_of(points, origin, inv_resolution))
+    if valid is not None:
+        key = torch.where(valid, key, INVALID_KEY)
+    return key
+
+
+def lookup(sorted_keys: torch.Tensor, query_keys: torch.Tensor):
+    """Slots of ``query_keys`` (...,) int32 in the sorted key array (V,)
+    int32: (slot (...,) int64 clamped to V - 1, found (...,) bool). The
+    INVALID_KEY padding sorts last, and an INVALID query is never found."""
+    cap = sorted_keys.shape[0]
+    idx = torch.searchsorted(sorted_keys, query_keys.contiguous(), side="left")
+    idx = torch.clamp(idx, max=cap - 1)
+    found = (sorted_keys[idx] == query_keys) & (query_keys != INVALID_KEY)
+    return idx, found
 
 
 def shift(coords: torch.Tensor, off) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """The registration objective on RegMap rows and the Newton driver on top
 of it (port of slamtpu/ndt/pallas_math.py: ``gather_megaT``,
 ``fused_objective``, ``score_grad_hess_fused``, ``newton_align_fused`` and
-``gicp_align_fused``; and of slamtpu/ndt/gicp.py's ``gicp_align_aniso``).
+``gicp_align_fused``; and of slamtpu/ndt/gicp.py's ``gicp_align`` and
+``gicp_align_aniso``).
 
 Three pair kernels carry it, the three costs of one CUDA kernel template,
 each beside its plain PyTorch version:
@@ -33,9 +34,10 @@ for CPU tensors; for CUDA tensors it launches the kernel
 (``csrc/ndt_pair.cu``, built at first launch) or raises. ``LAUNCHES``
 counts kernel launches, and only those.
 
-The Newton loop is a Python loop over outer iterations (one row lookup
-each). Its exit test reads the iteration count and the convergence flag on
-the host: one device sync per outer iteration, counted in ``HOST_READS``.
+The Newton loop (``newton.drive``) is a Python loop over outer iterations,
+one row lookup each. Its exit test reads the iteration count and the
+convergence flag on the host: one device sync per outer iteration, counted
+in ``HOST_READS`` (``newton.HOST_READS``).
 """
 from __future__ import annotations
 
@@ -47,14 +49,12 @@ import torch
 from ..core import se3
 from ..core.se3 import Pose3
 from .constants import gauss_constants
-from .newton import NewtonConfig, NewtonResult, regularize_step
+from .newton import HOST_READS, NewtonConfig, NewtonResult, _NewtonRun, drive
 from .objective import MAX_EXPONENT_ARG, MIN_FACTOR, NdtObjective, sanitize_points
 from .regmap import RegMap, grid_rows, radius_gate
 
 LAUNCHES = {"ndt_pair": 0, "gicp_pair": 0, "aniso_pair": 0, "ndt_pair_gated": 0,
             "gicp_pair_gated": 0}
-# host reads of the Newton loop state (each one waits for the device)
-HOST_READS = {"newton": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -475,6 +475,17 @@ def gicp_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: Newton
                               _gicp=True, _gicp_max_mahal=max_mahal)
 
 
+def gicp_align(points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig,
+               grid_shape: tuple = (256, 256, 64)) -> NewtonResult:
+    """VGICP registration with the contract of the reference's ``gicp_align``
+    (its XLA Newton loop, which the sorted-key apps take): one Newton step a
+    lookup whatever ``fused_inner_iters`` says, no KDTREE gate, score and
+    Hessian at the returned pose; over the VGICP pair kernel (regmap from
+    ``gicp_map`` + ``build_regmap``)."""
+    return newton_align_fused(points, mask, regmap, init_pose, cfg._replace(kd_radius=0.0), grid_shape,
+                              inner_iters=1, final_eval=True, _gicp=True)
+
+
 def gicp_align_aniso(points, mask, src_cov, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig,
                      grid_shape: tuple) -> NewtonResult:
     """Plane-to-plane GICP registration on the plane-to-plane pair kernel
@@ -484,13 +495,6 @@ def gicp_align_aniso(points, mask, src_cov, regmap: RegMap, init_pose: Pose3, cf
     the returned pose."""
     return newton_align_fused(points, mask, regmap, init_pose, cfg, grid_shape, inner_iters=1,
                               final_eval=True, src_cov=src_cov)
-
-
-def _read_state(it, conv):
-    """(iterations, converged) on the host: one device sync."""
-    HOST_READS["newton"] += 1
-    it_h, conv_h = torch.stack([it, conv.to(torch.int32)]).tolist()
-    return it_h, bool(conv_h)
 
 
 def newton_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig,
@@ -521,13 +525,8 @@ def newton_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: Newt
     evaluation's raw kernel sums (``rows_objective``): the multi-device
     layer passes a sum over the ranks, whose equal results give every rank
     the same loop decisions."""
-    run = _FusedNewton(points, mask, regmap, init_pose, cfg, grid_shape, inner_iters, reg_pose,
-                       src_cov, reduce, _gicp, _gicp_max_mahal)
-    it_h, conv_h = 0, False
-    while it_h < cfg.max_iterations and not conv_h:
-        run.outer_iteration()
-        it_h, conv_h = _read_state(run.it, run.conv)
-    return run.result(final_eval)
+    return drive(_fused_run(points, mask, regmap, init_pose, cfg, grid_shape, inner_iters, reg_pose,
+                            src_cov, reduce, _gicp, _gicp_max_mahal), final_eval)
 
 
 def newton_align_fused_batch(points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig,
@@ -540,8 +539,8 @@ def newton_align_fused_batch(points, mask, regmap: RegMap, init_pose: Pose3, cfg
     host read per outer iteration covers the whole batch. Each step
     launches the NDT pair kernel at K = 1 once per running scan, with that
     scan's rows (a launch takes one point set). Fields come back batched."""
-    runs = [_FusedNewton(points[b], mask[b], regmap, Pose3(init_pose.rot[b], init_pose.trans[b]), cfg,
-                         grid_shape, inner_iters)
+    runs = [_fused_run(points[b], mask[b], regmap, Pose3(init_pose.rot[b], init_pose.trans[b]), cfg,
+                       grid_shape, inner_iters)
             for b in range(points.shape[0])]
     running = runs if cfg.max_iterations > 0 else []
     while running:
@@ -555,74 +554,27 @@ def newton_align_fused_batch(points, mask, regmap: RegMap, init_pose: Pose3, cfg
                         *(torch.stack(f) for f in list(zip(*res))[1:]))
 
 
-class _FusedNewton:
-    """One registration of ``newton_align_fused``, an outer iteration at a
-    time: its pose, applied-step count ``it``, convergence flag ``conv`` and
-    the last applied step's objective, all on the device."""
+def _fused_run(points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig, grid_shape: tuple,
+               inner_iters: int, reg_pose: Pose3 = None, src_cov=None, reduce=None, gicp: bool = False,
+               gicp_max_mahal: float = 9.0) -> _NewtonRun:
+    """One registration of ``newton_align_fused`` in float32: each lookup is
+    the points' RegMap rows (and the KDTREE gate block) at the lookup pose,
+    each evaluation one launch of a pair kernel on those rows."""
+    d1, d2, _ = gauss_constants(cfg.resolution, cfg.outlier_ratio)
+    if gicp or src_cov is not None:
+        d2 = float(cfg.gicp_max_corr_dist) ** 2  # the d2 slot carries the distance gate
+    f32 = torch.float32
+    points, mask = sanitize_points(points, mask)
+    ptsT = points.to(f32).t().contiguous()
+    scovT = None if src_cov is None else src_cov.reshape(-1, 9).t().contiguous().to(f32)
+    kd_radius = cfg.kd_radius if src_cov is None else 0.0
 
-    def __init__(self, points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig,
-                 grid_shape: tuple, inner_iters: int, reg_pose: Pose3 = None, src_cov=None,
-                 reduce=None, gicp: bool = False, gicp_max_mahal: float = 9.0):
-        d1, d2, _ = gauss_constants(cfg.resolution, cfg.outlier_ratio)
-        if gicp or src_cov is not None:
-            d2 = float(cfg.gicp_max_corr_dist) ** 2  # the d2 slot carries the distance gate
-        f32 = torch.float32
-        self.points, self.mask = sanitize_points(points, mask)
-        self.ptsT = self.points.to(f32).t().contiguous()
-        dev = self.ptsT.device
-        self.scovT = None if src_cov is None else src_cov.reshape(-1, 9).t().contiguous().to(f32)
-        self.kd_radius = cfg.kd_radius if src_cov is None else 0.0
-        self.regmap, self.cfg, self.grid_shape, self.inner_iters = regmap, cfg, grid_shape, inner_iters
-        self.reg_pose, self.reduce, self.gicp, self.gicp_max_mahal = reg_pose, reduce, gicp, gicp_max_mahal
-        self.d1, self.d2 = d1, d2
-        self.budget = torch.full((), cfg.gather_stale_frac * cfg.resolution, dtype=f32, device=dev)
-        self.pose = se3.cast(init_pose, f32)
-        self.it = torch.zeros((), dtype=torch.int32, device=dev)
-        self.conv = torch.zeros((), dtype=torch.bool, device=dev)
-        self.obj = NdtObjective(torch.zeros((), dtype=f32, device=dev),
-                                torch.zeros(6, dtype=f32, device=dev),
-                                torch.zeros((6, 6), dtype=f32, device=dev),
-                                torch.zeros((), dtype=torch.int32, device=dev))
-
-    def evaluate(self, pose, rows):
-        return rows_objective(self.ptsT, self.regmap.packed, rows[0], pose, self.d1, self.d2,
-                              self.cfg.hess_lambda, gicp=self.gicp, gicp_max_mahal=self.gicp_max_mahal,
-                              src_covT=self.scovT, gate=rows[1], reduce=self.reduce)
-
-    def lookup(self, pose):
+    def lookup(pose):
         """(rows, gate) at ``pose``."""
-        return (grid_rows(self.points, self.mask, pose, self.regmap, self.grid_shape),
-                gate_params(pose, self.kd_radius))
+        return grid_rows(points, mask, pose, regmap, grid_shape), gate_params(pose, kd_radius)
 
-    def one_step(self, pose, rows):
-        cfg = self.cfg
-        obj = self.evaluate(pose, rows)
-        grad, hess = regularize_step(pose, obj.grad, obj.hess, obj.n_contrib, cfg, self.reg_pose)
-        step = torch.linalg.solve_ex(hess, -grad)[0]
-        step = torch.where(torch.isfinite(step).all(), step, 0.0)
-        norm = torch.linalg.vector_norm(step)
-        scale = torch.where(norm > cfg.max_step_norm,
-                            cfg.max_step_norm / torch.clamp(norm, min=1e-30), 1.0)
-        step = (cfg.step_size * scale) * step
-        return se3.retract(pose, step), torch.linalg.vector_norm(step), obj
+    def evaluate(pose, rows):
+        return rows_objective(ptsT, regmap.packed, rows[0], pose, d1, d2, cfg.hess_lambda, gicp=gicp,
+                              gicp_max_mahal=gicp_max_mahal, src_covT=scovT, gate=rows[1], reduce=reduce)
 
-    def outer_iteration(self):
-        """One row lookup and up to ``inner_iters`` steps on its rows."""
-        rows = self.lookup(self.pose)
-        pose, norm, obj = self.one_step(self.pose, rows)
-        moved, applied = norm, torch.ones((), dtype=torch.int32, device=norm.device)
-        for _ in range(self.inner_iters - 1):
-            new_pose, stepn, obj2 = self.one_step(pose, rows)
-            ok = moved + stepn <= self.budget
-            pose = se3.where(ok, new_pose, pose)
-            norm = torch.where(ok, stepn, norm)
-            obj = NdtObjective(*(torch.where(ok, n, o) for n, o in zip(obj2, obj)))
-            moved = torch.where(ok, moved + stepn, moved + self.budget)
-            applied = applied + ok.to(torch.int32)
-        self.pose, self.obj = pose, obj
-        self.it = self.it + applied
-        self.conv = norm < self.cfg.trans_eps
-
-    def result(self, final_eval: bool) -> NewtonResult:
-        obj = self.evaluate(self.pose, self.lookup(self.pose)) if final_eval else self.obj
-        return NewtonResult(self.pose, obj.hess, obj.score, self.it, self.conv, obj.n_contrib)
+    return _NewtonRun(lookup, evaluate, init_pose, cfg, inner_iters, reg_pose, f32)

@@ -1,5 +1,6 @@
 """Stein-Variational-Newton NDT registration: a pose posterior (port of
-slamtpu/ndt/svn.py, the RegMap path).
+slamtpu/ndt/svn.py: ``svn_align_reg`` on the RegMap layout, ``svn_align``
+on the sorted-key objective).
 
 Per iteration: one row lookup at the particle mean; stage 1 evaluates the
 NDT objective for all K particles in ONE launch of the pair kernel, which
@@ -15,19 +16,33 @@ lookup at its own pose and one launch of the plane-to-plane kernel, which
 gathers the aux rows itself) and the particle-spread covariance at the
 published pose.
 
+``svn_align`` evaluates the K particles in one batched pass of the
+sorted-key objective (``objective.score_grad_hess``, DIRECT7 or DIRECT1),
+each particle searching its own neighbors, and polishes on the same
+objective.
+
 The loop runs ``max_iterations`` trips on the device with no host sync:
 once converged, the state freezes (the iteration counter and the
 particles stop moving), which gives the reference's while-loop results.
+
+Each stage runs under a ``torch.profiler.record_function`` span named as
+the reference's ``jax.named_scope``: ``svn_gather``,
+``svn_particle_eval``, ``svn_stein_update``, ``svn_retract``,
+``svn_polish_pre``, ``svn_polish``, ``svn_final_score`` and
+``svn_posterior``, so a profiler trace splits a keyframe by stage.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from ..core import linalg, se3
 from ..core.const import constant
 from ..core.se3 import Pose3
+from ..mapping import voxel
+from . import objective
 from .constants import gauss_constants
 from .fused_math import gate_params, rows_objective
 from .objective import NdtObjective
@@ -45,8 +60,9 @@ class SvnConfig(NamedTuple):
     kernel_h: float = 5.0
     step_size: float = 0.05
     stop_thresh: float = 1e-4
-    # read by the reference's sorted-key objective only: on the RegMap path
-    # DIRECT1 runs DIRECT7, in both packages
+    # the sorted-key objective's neighbor set (svn_align): the voxel alone
+    # instead of DIRECT7; on the RegMap path DIRECT1 runs DIRECT7, in both
+    # packages
     use_direct1: bool = False
     hess_lambda: float = 1e-6  # per-particle NDT Hessian Tikhonov
     svn_hess_lambda: float = 1e-6  # H~ regularization
@@ -55,7 +71,8 @@ class SvnConfig(NamedTuple):
     # each particle's rows at its own pose (strict per-particle DIRECT7)
     shared_gather: bool = True
     # KDTREE search mode: > 0 gates each slot on its centroid's distance from
-    # the point at the gather pose (pair with build_regmap_kdtree)
+    # the point at the gather pose (pair with build_regmap_kdtree); svn_align
+    # ignores it, as the reference's does
     kd_radius: float = 0.0
     polish_iters: int = 0  # Newton steps from the polish start point
     polish_from: str = "prior"  # "prior" | "mean"
@@ -171,6 +188,35 @@ def svn_align_reg(
     return _svn_loop(make_obj, points.dtype, prior, init_noise, cfg, polish_make_obj, _ranks)
 
 
+def svn_align(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    gmap,
+    prior: Pose3,
+    cfg: SvnConfig = SvnConfig(),
+    init_noise: Optional[torch.Tensor] = None,  # (K, 6) standard normal
+    generator: Optional[torch.Generator] = None,
+) -> SvnResult:
+    """SVN-NDT on the sorted-key objective against the Gaussian map ``gmap``:
+    stage 1 evaluates the K particles in one batched pass, each on its own
+    neighbor search (DIRECT1 with ``cfg.use_direct1``, else DIRECT7;
+    ``cfg.kd_radius`` and ``cfg.shared_gather`` do not apply). The polish,
+    if any, runs on the same NDT objective whatever
+    ``cfg.polish_objective`` says, as in the reference. The draws are
+    ``init_noise`` when given, else drawn from ``generator``."""
+    d1, d2, _ = gauss_constants(cfg.resolution, cfg.outlier_ratio)
+    offsets = voxel.DIRECT1_OFFSETS if cfg.use_direct1 else voxel.DIRECT7_OFFSETS
+
+    def obj_fn(pose):
+        return objective.score_grad_hess(points, mask, pose, gmap, d1, d2, offsets, cfg.hess_lambda)
+
+    if init_noise is None:
+        init_noise = torch.randn(
+            (cfg.num_particles, 6), generator=generator, dtype=points.dtype, device=points.device
+        )
+    return _svn_loop(lambda _mean_pose: obj_fn, points.dtype, prior, init_noise, cfg)
+
+
 def _svn_loop(make_obj, dtype, prior: Pose3, init_noise, cfg: SvnConfig,
               polish_make_obj=None, ranks=_OneDevice) -> SvnResult:
     """The particle flow, the polish and the posterior. ``ranks`` splits
@@ -192,29 +238,34 @@ def _svn_loop(make_obj, dtype, prior: Pose3, init_noise, cfg: SvnConfig,
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     converged = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(cfg.max_iterations):
-        obj = make_obj(mean_pose)(particles)  # stage 1: the L particles, one launch (or L)
-        grads = torch.where(_all_finite(obj.grad, 1)[:, None], obj.grad, 0.0)
-        hessians = torch.where(_all_finite(obj.hess, 2)[:, None, None], obj.hess, I6)
-        # stage 2: Stein-variational Newton update; the sums run over the
-        # rows l (these L particles), for every column k (all K)
-        kval, kgrad = _pairwise_kernel(particles, cfg.kernel_h, ranks.gather(particles))
-        phi, Ht = ranks.reduce_scatter(
-            torch.einsum("lk,la->ka", kval, grads) + kgrad.sum(0),
-            torch.einsum("lk,lab->kab", kval * kval, hessians) + torch.einsum("lka,lkb->kab", kgrad, kgrad),
-        )
-        phi = phi / K
-        Ht = Ht / K + cfg.svn_hess_lambda * I6
-        updates = torch.linalg.solve_ex(Ht, -phi[..., None])[0][..., 0]
-        updates = torch.where(_all_finite(updates, 1)[:, None], updates, 0.0)
-        # stage 3: retract, and freeze everything once converged
-        new_particles = se3.retract(particles, cfg.step_size * updates)
-        mean_now = mean_pose_of(new_particles)
-        delta = torch.linalg.vector_norm(se3.local(mean_pose, mean_now))
-        active = ~converged
-        particles = se3.where(active.expand(L), new_particles, particles)
-        mean_pose = se3.where(active, mean_now, mean_pose)
-        iters = iters + active.to(torch.int32)
-        converged = converged | (active & (delta < cfg.stop_thresh))
+        with record_function("svn_gather"):  # the lookup the particles share, if any
+            obj_fn = make_obj(mean_pose)
+        with record_function("svn_particle_eval"):  # stage 1: the L particles, one launch (or L)
+            obj = obj_fn(particles)
+            grads = torch.where(_all_finite(obj.grad, 1)[:, None], obj.grad, 0.0)
+            hessians = torch.where(_all_finite(obj.hess, 2)[:, None, None], obj.hess, I6)
+        with record_function("svn_stein_update"):
+            # stage 2: Stein-variational Newton update; the sums run over the
+            # rows l (these L particles), for every column k (all K)
+            kval, kgrad = _pairwise_kernel(particles, cfg.kernel_h, ranks.gather(particles))
+            phi, Ht = ranks.reduce_scatter(
+                torch.einsum("lk,la->ka", kval, grads) + kgrad.sum(0),
+                torch.einsum("lk,lab->kab", kval * kval, hessians) + torch.einsum("lka,lkb->kab", kgrad, kgrad),
+            )
+            phi = phi / K
+            Ht = Ht / K + cfg.svn_hess_lambda * I6
+            updates = torch.linalg.solve_ex(Ht, -phi[..., None])[0][..., 0]
+            updates = torch.where(_all_finite(updates, 1)[:, None], updates, 0.0)
+        with record_function("svn_retract"):
+            # stage 3: retract, and freeze everything once converged
+            new_particles = se3.retract(particles, cfg.step_size * updates)
+            mean_now = mean_pose_of(new_particles)
+            delta = torch.linalg.vector_norm(se3.local(mean_pose, mean_now))
+            active = ~converged
+            particles = se3.where(active.expand(L), new_particles, particles)
+            mean_pose = se3.where(active, mean_now, mean_pose)
+            iters = iters + active.to(torch.int32)
+            converged = converged | (active & (delta < cfg.stop_thresh))
 
     score = torch.zeros((), dtype=torch.float32, device=dev)
     if cfg.polish_iters > 0:
@@ -233,18 +284,22 @@ def _svn_loop(make_obj, dtype, prior: Pose3, init_noise, cfg: SvnConfig,
 
         start = prior if cfg.polish_from == "prior" else mean_pose
         if polish_make_obj is not None and cfg.polish_pre_iters > 0 and cfg.polish_from == "mean":
-            start, _ = polish(make_obj, start, cfg.polish_pre_iters, score)
-        mean_pose, score = polish(polish_make_obj or make_obj, start, cfg.polish_iters, score)
+            with record_function("svn_polish_pre"):
+                start, _ = polish(make_obj, start, cfg.polish_pre_iters, score)
+        with record_function("svn_polish"):
+            mean_pose, score = polish(polish_make_obj or make_obj, start, cfg.polish_iters, score)
     else:
-        score = make_obj(mean_pose)(mean_pose).score.to(torch.float32)
+        with record_function("svn_final_score"):
+            score = make_obj(mean_pose)(mean_pose).score.to(torch.float32)
 
-    # posterior: sample covariance of the particles' tangents at the pose
-    mean_b = Pose3(mean_pose.rot.expand(L, 3, 3), mean_pose.trans.expand(L, 3))
-    tangents = se3.local(mean_b, particles)
-    if K > 1:
-        centered = tangents - ranks.all_reduce(torch.sum(tangents, dim=0, keepdim=True)) / K
-        cov = ranks.all_reduce(centered.t() @ centered) / (K - 1)
-    else:
-        cov = torch.diag(1e-6 * sigmas ** 2)
-    cov = linalg.eig_floor_psd(cov, cfg.cov_eig_floor)
+    with record_function("svn_posterior"):
+        # posterior: sample covariance of the particles' tangents at the pose
+        mean_b = Pose3(mean_pose.rot.expand(L, 3, 3), mean_pose.trans.expand(L, 3))
+        tangents = se3.local(mean_b, particles)
+        if K > 1:
+            centered = tangents - ranks.all_reduce(torch.sum(tangents, dim=0, keepdim=True)) / K
+            cov = ranks.all_reduce(centered.t() @ centered) / (K - 1)
+        else:
+            cov = torch.diag(1e-6 * sigmas ** 2)
+        cov = linalg.eig_floor_psd(cov, cfg.cov_eig_floor)
     return SvnResult(mean_pose, cov, iters, converged, ranks.gather(particles), score)

@@ -6,16 +6,21 @@ is asked for. A span then measures the stream's time from the stage's
 first enqueued work to its last, including any gap where the stream waited
 for the host. On the CPU, work runs as it is issued and spans read the host
 clock.
+
+Every span also runs under a ``torch.profiler.record_function`` of its
+name, so a profiler trace (``--profile``) splits the keyframe by stage
+under the reference's scope names; with no timer, ``span`` opens that
+alone.
 """
 from __future__ import annotations
 
-import contextlib
 import time
 from contextlib import contextmanager
 from typing import Dict, List
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 
 class DeviceStageTimer:
@@ -26,6 +31,11 @@ class DeviceStageTimer:
 
     @contextmanager
     def span(self, name: str):
+        with record_function(name), self._timed(name):
+            yield
+
+    @contextmanager
+    def _timed(self, name: str):
         if self.cuda:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -57,5 +67,5 @@ class DeviceStageTimer:
 
 
 def span(timer, name: str):
-    """``timer.span(name)``, or no span when ``timer`` is None."""
-    return timer.span(name) if timer is not None else contextlib.nullcontext()
+    """``timer.span(name)``, or only the profiler's span when ``timer`` is None."""
+    return timer.span(name) if timer is not None else record_function(name)

@@ -12,7 +12,8 @@ TestLoSvnResume, TestOdomResume, TestLigoResume).
     wrote (odom_ndt, ligo_tc); each continuation is held within 5e-4 m and
     1e-4 rad of the other package's continuation from the same file (the
     bound of the replay parity tests). An odom file without ``prev_ins``
-    resumes in both packages and they agree.
+    resumes in both packages and they agree. (a) also runs on the
+    sorted-key path (``use_regmap=False``) for the three apps.
 (c) The file format: map statistics and trajectories cross in both
     directions, a file without the ``layout`` marker is read as this
     layout, another layout raises, and a generator state is restored only
@@ -53,18 +54,23 @@ N_SWEEPS = 6
 WINDOW = {"odom": 3, "ligo": 4}
 
 
-def _configs(name):
-    """(reference config, port config, port app factory, reference app factory)."""
+def _configs(name, **change):
+    """(reference config, port config, port app factory, reference app
+    factory); ``change`` updates both register configs."""
     if name == "lo_svn":
         jcfg, tcfg = lo_configs()
-        return jcfg, tcfg, lambda: tlo.LoSvnApp(tcfg, "cpu"), lambda: jlo.LoSvnApp(jcfg)
-    if name.startswith("odom"):
+    elif name.startswith("odom"):
         method = name.split("_", 1)[1]
         jcfg, tcfg = engine_configs(method) if method == "SVNNDT" else odom_configs(method)
+    else:
+        jcfg, tcfg = ligo_configs(1)
+    jcfg, tcfg = (dataclasses.replace(c, register=dataclasses.replace(c.register, **change)) for c in (jcfg, tcfg))
+    if name == "lo_svn":
+        return jcfg, tcfg, lambda: tlo.LoSvnApp(tcfg, "cpu"), lambda: jlo.LoSvnApp(jcfg)
+    if name.startswith("odom"):
         W = WINDOW["odom"]
         return (jcfg, tcfg, lambda: todom.OdomNdtApp(tcfg, "cpu", window=W),
                 lambda: jodom.OdomNdtApp(jcfg, window=W))
-    jcfg, tcfg = ligo_configs(1)
     W = WINDOW["ligo"]
     return jcfg, tcfg, lambda: tligo.LigoTcApp(tcfg, "cpu", window=W), lambda: jligo.LigoTcApp(jcfg, window=W)
 
@@ -103,9 +109,8 @@ def _close(a, b, atol_m, atol_rad):
                            atol_rad=atol_rad)
 
 
-@pytest.mark.parametrize("name", ["lo_svn", "odom_NDT_OMP", "odom_SVNNDT", "ligo"])
-def test_split_run_equals_continuous(replay, tmp_path, name):
-    _, _, make, _ = _configs(name)
+def _split_equals_continuous(replay, tmp_path, name, **change):
+    _, _, make, _ = _configs(name, **change)
     full = make()
     frames = _frames(full, replay)
     traj_full = _run(full, frames)
@@ -119,6 +124,21 @@ def test_split_run_equals_continuous(replay, tmp_path, name):
     tail = _run(b, frames[half:])
     assert len(head) + len(tail) == len(traj_full) == N_SWEEPS - 1
     _close(head + tail, traj_full, atol_m=1e-5, atol_rad=1e-5)
+    return b
+
+
+@pytest.mark.parametrize("name", ["lo_svn", "odom_NDT_OMP", "odom_SVNNDT", "ligo"])
+def test_split_run_equals_continuous(replay, tmp_path, name):
+    _split_equals_continuous(replay, tmp_path, name)
+
+
+@pytest.mark.parametrize("name", ["lo_svn", "odom_NDT_OMP", "ligo"])
+def test_sorted_key_split_run_equals_continuous(replay, tmp_path, name):
+    """``use_regmap=False``: the file carries no RegMap on either path, and
+    on this one the apps keep none, so a resumed run equals a continuous
+    one as on the RegMap path."""
+    resumed = _split_equals_continuous(replay, tmp_path, name, use_regmap=False)
+    assert resumed.grid_shape is None
 
 
 @pytest.mark.parametrize("name", ["lo_svn", "odom_NDT_OMP", "ligo"])

@@ -7,7 +7,9 @@ read). Each app, run by both command lines for 3 keyframes, writes the same
 set of files (the port with ``--device cpu``). The odom_ndt trajectory the
 port's command line writes equals ``OdomNdtApp``'s on the same config bit
 for bit; ``--loop-closure`` prints the closure count; ``--profile`` writes
-a torch.profiler trace; the default ``--device cuda`` fails without a card,
+a torch.profiler trace; ``"use_regmap": false`` in the register file runs
+odom_ndt and lo_svn on the sorted-key path as the reference's command
+line does; the default ``--device cuda`` fails without a card,
 naming the flag; importing the module starts no CUDA context.
 """
 import json
@@ -115,6 +117,35 @@ def test_profile_writes_a_trace(setup):
     out = _run(tmain.main, "viz_lidar", setup, "port_profile", "--device", "cpu", "--profile")
     with open(os.path.join(out, "torch_trace.json")) as f:
         assert "traceEvents" in json.load(f)
+
+
+@pytest.mark.parametrize("app", ["odom_ndt", "lo_svn"])
+def test_sorted_key_register_file(setup, tmp_path, app):
+    """``"use_regmap": false`` in the register file takes the app onto the
+    sorted-key path: its trajectory equals the reference command line's
+    within the replay parity bound (5e-4 m), and the ``--profile`` trace
+    carries the stage names."""
+    from slamtpu import __main__ as jmain
+
+    d, replay, flags, _ = setup
+    register = str(tmp_path / "register.json")
+    with open(register, "w") as f:
+        json.dump({"register_parameter": dict(REGISTER, use_regmap=False)}, f)
+    flags = list(flags)
+    flags[flags.index("--register") + 1] = register
+    outs = {}
+    for name, main, extra in (("ref", jmain.main, ()), ("port", tmain.main, ("--device", "cpu", "--profile"))):
+        outs[name] = str(tmp_path / name)
+        assert main([app, "--replay", replay, "--out", outs[name], "--max-keyframes", str(MAX_KF), *flags,
+                     *extra]) == 0
+    jt, tt = (checkpoint.load_trajectory(os.path.join(o, "trajectory.npz")) for o in (outs["ref"], outs["port"]))
+    np.testing.assert_array_equal(tt[0], jt[0])  # timestamps
+    np.testing.assert_allclose(np.asarray([p.trans for p in tt[1]]), np.asarray([p.trans for p in jt[1]]),
+                               atol=5e-4)
+    with open(os.path.join(outs["port"], "torch_trace.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    stages = {"odom_ndt": ("map_build", "newton"), "lo_svn": ("map_rebuild", "svn_particle_eval", "svn_polish")}
+    assert set(stages[app]) <= names, names & set(stages[app])
 
 
 def test_default_device_needs_a_card(setup, monkeypatch):

@@ -18,7 +18,8 @@ Tolerances (float32 sums in other orders: the gloo ring, the reference's
 ``psum`` and the one-device sums): voxel keys, counts and validity exact,
 means 1e-5 m, inverse covariances rtol 1e-3; Newton poses 1e-4 m / 1e-4
 rad with equal iterations (the reference's tests hold its own sharded and
-one-device runs at 1e-6 and 5e-3, tests/test_dist.py:68-74, 182-188),
+one-device runs at 1e-6 and 5e-3, tests/test_dist.py:68-74, 182-188), in
+``newton_align_sharded`` (the sorted-key objective) as in the RegMap ones,
 the one-device port's Newton at 1e-5 m / 1e-5 rad; ``lo_train_step``'s
 statistics against the one-device merge exact in keys and counts, rtol
 1e-5 in the sums, and against the reference's exact in keys and the
@@ -143,6 +144,13 @@ def _rank_worker(rank, world, init_file, out_dir, noise):
             return dict(keys=g.keys, count=g.count, valid=g.valid, mean=g.mean, icov=g.icov)
 
         rmap = _regmap(x["world"], 6, GRID_MAP)
+        gmap = gaussian_map.build_map(_t(x["world"]), ones(x["world"]), _t(ORIGIN), 1.0, capacity=4096,
+                                      min_points_per_voxel=6)
+
+        def newton_sorted():
+            p, h, s, it = tdist.newton_align_sharded(mine(x["src_map"]), ones(mine(x["src_map"])), gmap,
+                                                     _identity(), max_iterations=20)
+            return dict(rot=p.rot, trans=p.trans, hess=h, score=s, iterations=it)
 
         def newton_reg():
             p, h, s, it = tdist.newton_align_sharded_reg(mine(x["src_map"]), ones(mine(x["src_map"])), rmap,
@@ -183,7 +191,8 @@ def _rank_worker(rank, world, init_file, out_dir, noise):
                                           inner_iters=2)
             return dict(rot=r.pose.rot, trans=r.pose.trans, iterations=r.iterations)
 
-        for name, fn in (("build", build), ("newton_reg", newton_reg), ("newton_fused", newton_fused),
+        for name, fn in (("build", build), ("newton_sorted", newton_sorted), ("newton_reg", newton_reg),
+                         ("newton_fused", newton_fused),
                          ("lo_step", lo_step), ("svn", svn), ("batch", batch)):
             _run(name, out, fn)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
@@ -284,6 +293,43 @@ def test_build_map_sharded(ranks):
         np.testing.assert_allclose(r["mean"], ref["mean"], atol=1e-5)
         np.testing.assert_allclose(r["icov"], ref["icov"], rtol=1e-3, atol=1e-3 * np.abs(ref["icov"]).max())
     assert int(r["valid"].sum()) > 20
+
+
+def test_newton_align_sharded(ranks):
+    """The sorted-key objective summed over the ranks: one all_reduce an
+    evaluation, against the reference's ``newton_align_sharded`` (its
+    XLA objective, at D = 2 and 4) and the port's one-device
+    ``newton_align``."""
+    import jax
+    import jax.numpy as jnp
+
+    from slamtpu.core import se3 as jse3
+    from slamtpu.dist import newton_align_sharded as jnewton
+    from slamtpu.mapping import gaussian_map as jgm
+    from slamtpu_torch.ndt.newton import newton_align
+
+    world, outs = ranks
+    r = _same_on_every_rank(outs, "newton_sorted")
+    it = int(r["iterations"])
+    _collectives(r, all_reduce=it + 1)  # one per evaluation, and the one at the returned pose
+    assert int(r["host_reads"]) == it
+    x = inputs()
+    mesh = _mesh(world)
+    jmap = jgm.build_map(jnp.asarray(x["world"]), jnp.ones(4096, bool), jnp.asarray(ORIGIN), np.float32(1.0),
+                         capacity=4096, min_points_per_voxel=6)
+    jp, _jh, js, jit = jax.jit(lambda p, m, g, i: jnewton(mesh, p, m, g, i, max_iterations=20))(
+        jnp.asarray(x["src_map"]), jnp.ones(4096, bool), jmap, jse3.identity(dtype=jnp.float32))
+    assert it == int(jit)
+    _assert_pose(r["rot"], r["trans"], jp.rot, jp.trans, 1e-4, 1e-4)
+    np.testing.assert_allclose(float(r["score"]), float(js), rtol=1e-4)
+    gmap = gaussian_map.build_map(_t(x["world"]), torch.ones(4096, dtype=torch.bool), _t(ORIGIN), 1.0,
+                                  capacity=4096, min_points_per_voxel=6)
+    one = newton_align(_t(x["src_map"]), torch.ones(4096, dtype=torch.bool), gmap, _identity(),
+                       NewtonConfig(max_iterations=20))
+    assert it == int(one.iterations)
+    _assert_pose(r["rot"], r["trans"], one.pose.rot, one.pose.trans, 1e-5, 1e-5)
+    gt = _jpose(GT_MAP)
+    _assert_pose(r["rot"], r["trans"], gt.rot, gt.trans, 0.05, 0.035)
 
 
 def test_newton_align_sharded_reg(ranks):

@@ -26,7 +26,9 @@ pair kernel's plain version with ``fused_inner_iters=1`` (and
     reference fails at its first registration (its rebuild ``lax.cond``
     meets a DIRECT7 map and a cache of KDTREE shape), the port at
     construction.
-(d) What the port does not carry raises.
+(d) The sorted-key path (``use_regmap=False``): ``run_replay`` of both
+    packages at the bounds of (b), in DIRECT7, DIRECT1 and KDTREE (which
+    run DIRECT7 in both packages there).
 """
 import functools
 
@@ -213,11 +215,34 @@ def test_kdtree_fails_in_both_packages(replay, field):
         tligo.LigoTcApp(tcfg, "cpu", window=WINDOW)
 
 
-@pytest.mark.parametrize("change", [dict(use_regmap=False)])
-def test_unported_options_raise(change):
-    _, tcfg = configs(1, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tligo.LigoTcApp(tcfg, "cpu")
+@pytest.mark.parametrize("search", ["DIRECT7", "DIRECT1", "KDTREE"])
+def test_sorted_key_run_replay_matches_reference(replay, search):
+    """``use_regmap=False``: the map every keyframe and ``newton_align`` with
+    the pull toward the prediction, no RegMap. The reference's Newton
+    config reads no search method, so DIRECT1 and KDTREE run DIRECT7 there
+    (and KDTREE runs at all: with no RegMap there is no cache to mismatch);
+    the port does the same and equals its DIRECT7 run bit for bit."""
+    path, gt = replay
+    jcfg, tcfg = configs(1, use_regmap=False, search_method=search)
+    jt = jligo.LigoTcApp(jcfg, window=WINDOW).run_replay(path)
+    tapp = tligo.LigoTcApp(tcfg, "cpu", window=WINDOW)
+    assert tapp.grid_shape is None and tapp._cadence.regmap is None
+    tt = tapp.run_replay(path)
+    assert len(tt) == len(jt) == N_SWEEPS - 1
+    for a, b in zip(jt, tt):
+        assert a.frame_id == b.frame_id
+        _assert_pose_close(b.pose.rot, b.pose.trans, a.pose.rot, a.pose.trans)
+    assert abs(_ate(tt, gt) - _ate(jt, gt)) < 5e-4 and _ate(jt, gt) < 0.05
+    recs = tapp.stats.records
+    assert all(np.isfinite(r.lidar_sigma).all() and np.isfinite(r.optimized_sigma).all() for r in recs)
+    # the map is built on every keyframe
+    assert tapp.device_timer.summary()["map_build"]["n"] == len(tt) - 1
+    if search != "DIRECT7":
+        t7 = tligo.LigoTcApp(configs(1, use_regmap=False)[1], "cpu", window=WINDOW).run_replay(path)
+        for a, b in zip(tt, t7):
+            np.testing.assert_array_equal(a.pose.trans, b.pose.trans)
+            np.testing.assert_array_equal(a.pose.rot, b.pose.rot)
+    print(f"sorted-key {search}: ATE reference {_ate(jt, gt):.6f} m, port {_ate(tt, gt):.6f} m")
 
 
 def test_no_cpu_fallback_without_a_card():

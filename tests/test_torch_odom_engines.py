@@ -9,7 +9,9 @@ draws), held as tests/test_torch_odom_ndt.py holds the others (pose 1e-4 m
 and ``run_replay`` of both packages (per-keyframe poses within 5e-4 m,
 ATEs within 5e-4 m; SVNNDT with the reference's per-keyframe draws
 injected). SVNNDT also runs in the KDTREE search mode. The anisotropic engine runs with the stencil source
-covariances (the default) and with the voxel ones.
+covariances (the default) and with the voxel ones. The three engines also
+run on the sorted-key path (``use_regmap=False``): SVNNDT on ``svn_align``,
+anisotropic GICP and the pyramid on the fixed (256, 256, 64) grid.
 """
 import dataclasses
 
@@ -41,6 +43,12 @@ ENGINES = {
     "SVNNDT_KDTREE": dict(method="SVNNDT", svn_resolution=np.float32(1.0), svn_particles=6,
                           svn_max_iterations=8, svn_kernel_h=1.0, svn_step_size=1.0,
                           svn_search_method="KDTREE"),
+    # the sorted-key path (use_regmap=False): SVNNDT on svn_align, the
+    # anisotropic GICP engine and the pyramid on the fixed (256, 256, 64) grid
+    "GICP_aniso_sorted_key": dict(method="GICP", gicp_source_cov="anisotropic", use_regmap=False),
+    "SVNNDT_sorted_key": dict(method="SVNNDT", svn_resolution=np.float32(1.0), svn_particles=6,
+                              svn_max_iterations=8, svn_kernel_h=1.0, svn_step_size=1.0, use_regmap=False),
+    "NDT_OMP_MULTIRES_sorted_key": dict(method="NDT_OMP_MULTIRES", use_regmap=False),
 }
 SEED_KEY = 1234  # the reference app's PRNGKey of the SVNNDT engine
 
@@ -101,7 +109,9 @@ def test_one_keyframe_step_matches(reference_runs, engine):
                                                                            dtype=jnp.float32))))
     if kwargs.get("scan_grid") is not None:
         extra["scan_grid"] = kwargs["scan_grid"]
-    assert (engine == "GICP_aniso") == ("scan_grid" in extra)
+    stencil = ENGINES[engine].get("gicp_source_cov") == "anisotropic" and "svn_src_cov" not in ENGINES[engine]
+    assert stencil == ("scan_grid" in extra)
+    assert (grid is None) == (ENGINES[engine].get("use_regmap") is False)
     before = dict(fused_math.LAUNCHES)
     _, out = todom._odom_fused_step(
         interop.odom_carry_from_numpy(carry), torch.as_tensor(points), torch.as_tensor(mask),

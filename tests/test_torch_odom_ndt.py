@@ -33,7 +33,11 @@ its fused driver over the pair kernels' plain versions with
     equal, pose within 1e-5 m / 1e-5 rad. DIRECT1 runs DIRECT7 in both
     packages: the port's DIRECT1 run equals its DIRECT7 run bit for bit
     and the reference's DIRECT1 run at the bounds of (b).
-(e) The options the port does not carry raise.
+(e) The sorted-key path (``use_regmap=False``): ``run_replay`` of both
+    packages with NDT_OMP in DIRECT7 and DIRECT1 (``newton_align``),
+    isotropic GICP (``gicp_align`` on the fixed (256, 256, 64) grid) and
+    NDT_OMP with loop closure, at the bounds of (b) and (f); KDTREE runs
+    DIRECT7 there in both packages. An unknown method raises.
 (f) Loop closure: ``run_replay`` of both packages with ``loop_closure=True``
     on a circle replay that revisits its start, then
     ``refine_loop_closures``: the same (i, j) closures; per-keyframe poses
@@ -272,17 +276,62 @@ def test_direct1_runs_direct7(replay):
     _assert_runs_match(path, gt, jt, tt)
 
 
-# the sorted-key objective stays unported, with loop closure too
-@pytest.mark.parametrize("change", [dict(use_regmap=False), dict(use_regmap=False, loop_closure=True)])
-def test_unported_engines_raise(change):
+def test_unknown_method_raises():
     _, tcfg = configs("NDT_OMP")
-    change = dict(change)
-    app_kw = {"loop_closure": change.pop("loop_closure")} if "loop_closure" in change else {}
-    cfg = dataclasses.replace(tcfg, register=dataclasses.replace(tcfg.register, **change))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        todom.OdomNdtApp(cfg, "cpu", **app_kw)
     with pytest.raises(ValueError):
         todom.OdomNdtApp(tcfg, "cpu", method="ICP")
+
+
+# the sorted-key path (use_regmap=False): NDT_OMP on newton_align in DIRECT7
+# and DIRECT1 (one voxel), isotropic GICP on gicp_align over the fixed
+# (256, 256, 64) grid
+SORTED_KEY = {
+    "NDT_OMP": ("NDT_OMP", {}),
+    "NDT_OMP_DIRECT1": ("NDT_OMP", dict(search_method="DIRECT1")),
+    "GICP": ("GICP", {}),
+}
+
+
+def _sorted_key_runs(path, method, **change):
+    jcfg, tcfg = (_with(c, use_regmap=False, **change) for c in configs(method))
+    japp = jodom.OdomNdtApp(jcfg, window=WINDOW)
+    tapp = todom.OdomNdtApp(tcfg, "cpu", window=WINDOW)
+    assert tapp.grid_shape is None
+    return japp, japp.run_replay(path), tapp, tapp.run_replay(path)
+
+
+@pytest.mark.parametrize("case", list(SORTED_KEY))
+def test_sorted_key_run_replay_matches_reference(replay, case, monkeypatch):
+    path, gt = replay
+    method, change = SORTED_KEY[case]
+    calls = []
+    for name in ("newton_align", "gicp_align", "newton_align_fused"):
+        real = getattr(todom, name)
+        monkeypatch.setattr(todom, name, lambda *a, _n=name, _f=real, **k: calls.append(_n) or _f(*a, **k))
+    japp, jt, tapp, tt = _sorted_key_runs(path, method, **change)
+    assert set(calls) == {"gicp_align" if method == "GICP" else "newton_align"}
+    _assert_runs_match(path, gt, jt, tt)
+    recs, jrecs = tapp.stats.records, japp.stats.records
+    assert [r.converged for r in recs] == [r.converged for r in jrecs]
+    assert all(abs(r.ndt_iterations - q.ndt_iterations) <= 1 for r, q in zip(recs, jrecs))
+    assert all(np.isfinite(r.lidar_sigma).all() for r in recs)
+    print(f"sorted-key {case}: ATE reference {_ate(jt, gt):.6f} m, port {_ate(tt, gt):.6f} m")
+
+
+def test_sorted_key_kdtree_runs_direct7(replay):
+    """KDTREE on the sorted-key path runs DIRECT7 in both packages (the
+    reference's sorted-key objective reads no radius): the port's KDTREE
+    run equals its DIRECT7 run bit for bit and the reference's KDTREE run
+    at the bounds of (b)."""
+    path, gt = replay
+    _, jt, tapp, tt = _sorted_key_runs(path, "NDT_OMP", search_method="KDTREE")
+    assert tapp.newton_cfg.kd_radius == 1.0
+    _, _, _, t7 = _sorted_key_runs(path, "NDT_OMP")
+    for a, b in zip(tt, t7):
+        np.testing.assert_array_equal(a.pose.trans, b.pose.trans)
+        np.testing.assert_array_equal(a.pose.rot, b.pose.rot)
+        np.testing.assert_array_equal(a.covariance, b.covariance)
+    _assert_runs_match(path, gt, jt, tt)
 
 
 # tests/test_e2e.py's loop-closure settings with the temporal gap cut from 30
@@ -334,6 +383,30 @@ def test_loop_closure_run_replay_matches_reference(loop_replay):
     print(f"loop closure: {len(pairs)} closures, ATE {ate_before:.6f} -> {ate_after:.6f} m "
           f"(reference {_ate(jt, gt):.6f} m after)")
     assert np.isfinite(ate_after) and ate_after < max(2.0 * ate_before, 0.05)
+
+
+def test_sorted_key_loop_closure_matches_reference(loop_replay):
+    """NDT_OMP on the sorted-key path with loop closure: the verifications
+    keep their own RegMap and the NDT pair kernel's plain version."""
+    from slamtpu.fusion.loop_closure import LoopClosureConfig as JLoop
+    from slamtpu_torch.fusion.loop_closure import LoopClosureConfig as TLoop
+
+    path, gt = loop_replay
+    jcfg, tcfg = (_with(c, use_regmap=False) for c in configs("NDT_OMP"))
+    japp = jodom.OdomNdtApp(jcfg, window=6, loop_closure=True, loop_cfg=JLoop(**LOOP_CFG))
+    tapp = todom.OdomNdtApp(tcfg, "cpu", window=6, loop_closure=True, loop_cfg=TLoop(**LOOP_CFG))
+    jt, tt = japp.run_replay(path), tapp.run_replay(path)
+    assert len(tt) == len(jt) == LOOP_SWEEPS - 1
+    for a, b in zip(jt, tt):
+        _assert_pose_close(b.pose.rot, b.pose.trans, a.pose.rot, a.pose.trans, atol_m=1e-3)
+    pairs = [(c.i, c.j) for c in tapp._closures]
+    assert pairs and pairs == [(c.i, c.j) for c in japp._closures]
+    jrefined, _ = japp.refine_loop_closures()
+    refined, _ = tapp.refine_loop_closures()
+    for a, b in zip(jrefined, refined):
+        _assert_pose_close(b.rot, b.trans, np.asarray(a.rot), np.asarray(a.trans), atol_m=1e-3, atol_rad=1e-3)
+    print(f"sorted-key loop closure: {len(pairs)} closures, ATE after {_ate(tt, gt):.6f} m "
+          f"(reference {_ate(jt, gt):.6f} m)")
 
 
 def test_loop_closure_without_closures_leaves_the_trajectory(replay):
