@@ -748,11 +748,13 @@ def replay_phase(torch, label, app, replay_path, gt, card, kernels, ate_bound):
     from slamtpu_torch.apps.common import ate_rmse, np_between
     from slamtpu_torch.core.se3 import Pose3
     from slamtpu_torch.ndt import fused_math
+    from slamtpu_torch.runtime.device_timer import keyframe_summary
 
     torch.cuda.reset_peak_memory_stats()
     for k in fused_math.LAUNCHES:
         fused_math.LAUNCHES[k] = 0
     newton_reads = fused_math.HOST_READS["newton"]
+    app.device_timer.trace_keyframes()
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -781,7 +783,8 @@ def replay_phase(torch, label, app, replay_path, gt, card, kernels, ate_bound):
                    [np_between(gtp[0], g) for g in gtp[: len(traj)]])
     ins_ate = ate_rmse([np_between(traj[0].ins_pose, e.ins_pose) for e in traj],
                        [np_between(gtp[0], g) for g in gtp[: len(traj)]])
-    ends = app.process_end_s
+    stamps = app.device_timer.keyframes()
+    ends = [1e-9 * s.queued for s in stamps.values()]  # host clock as each keyframe's work is queued
     warm = 3  # the first keyframes carry one-time set-up
     kf_s = (len(ends) - 1 - warm) / (ends[-1] - ends[warm])
     stages = app.device_timer.summary(skip_first=1)
@@ -792,6 +795,8 @@ def replay_phase(torch, label, app, replay_path, gt, card, kernels, ate_bound):
         f"host syncs {syncs} ({syncs / len(traj):.2f} per keyframe; Newton loop reads "
         f"{newton_reads}); peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     log(f"[{card}]   {label} host syncs by source line: {dict(sites.most_common())}")
+    log(f"[{card}]   {label} keyframe record: {keyframe_summary(stamps)}; least done - queued "
+        f"{min(s.done - s.queued for s in stamps.values()) * 1e-6:.4f} ms")
     for name, st in stages.items():
         log(f"[{card}]   {label} stage {name}: median {st['median_ms']:.3f} ms, "
             f"mean {st['mean_ms']:.3f} ms over {st['n']}")
@@ -853,6 +858,7 @@ def ins_map_phase(torch, replay_path, cfg, dev, card):
     reg = cfg.register
     torch.cuda.reset_peak_memory_stats()
     app = InsMapApp(cfg, dev)
+    app.device_timer.trace_keyframes()
     frames = list(app.ingest.synced_frames(replay_path))
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
@@ -867,7 +873,7 @@ def ins_map_phase(torch, replay_path, cfg, dev, card):
     wall = time.perf_counter() - t0
     syncs = sum(1 for w in caught if "synchroniz" in str(w.message)
                 and not Path(w.filename).name.startswith("device_timer"))
-    ends, warm = app.process_end_s, 3
+    ends, warm = [1e-9 * s.queued for s in app.device_timer.keyframes().values()], 3
     kf_s = (len(ends) - 1 - warm) / (ends[-1] - ends[warm])
     with tempfile.TemporaryDirectory() as tmp:
         prefix = os.path.join(tmp, "map")

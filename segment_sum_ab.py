@@ -112,13 +112,13 @@ def main():
                     own if arm == "tree" else index_add_sum)
             for label, (make_app, kernels, bound) in paths.items():
                 app = make_app()
-                _, traj = cs.replay_phase(torch, f"{label} [{arm}]", app, replay, gt, card,
-                                          kernels, bound)
+                _, traj, _ = cs.replay_phase(torch, f"{label} [{arm}]", app, replay, gt, card,
+                                             kernels, bound)
                 trans = np.stack([np.asarray(e.pose.trans, np.float64) for e in traj])
                 if i == 0:
                     continue  # the warm-up run
                 first.setdefault(label, trans)
-                ends = app.process_end_s
+                ends = [1e-9 * st.queued for st in app.device_timer.keyframes().values()]
                 results.append(dict(
                     arm=arm, run=i, path=label,
                     keyframes_s=(len(ends) - 1 - WARM) / (ends[-1] - ends[WARM]),

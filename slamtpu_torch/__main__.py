@@ -14,7 +14,12 @@ to the CPU. Outputs in ``--out``: ``trajectory.tum``, ``trajectory.npz``
 and ``keyframe_stats.csv`` (lo_svn, odom_ndt, ligo_tc), the ``ndt_map_*``
 files (ins_map), ``compass.csv`` (calib_compass), ``scan_*.ply``
 (viz_lidar), and with ``--profile`` a ``torch.profiler`` trace,
-``torch_trace.json``.
+``torch_trace.json``. ``--profile`` also switches on the apps' keyframe
+record (``runtime.device_timer``): lo_svn, odom_ndt, ligo_tc and ins_map
+print at exit, beside the ``stages:`` line, the pose latency p50 and p95
+(sweep handed in to pose on the host), the device lag p95 (work queued to
+work done on the card) and the most keyframes in flight on the host and on
+the device.
 
 Importing this module starts no CUDA context: the apps import, and the
 device is checked, inside ``main``.
@@ -82,6 +87,23 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
+def _record_line(timer) -> str:
+    """The keyframe record's summary as the command line prints it."""
+    from .runtime.device_timer import keyframe_summary
+
+    s = keyframe_summary(timer.keyframes())
+
+    def ms(v):
+        return "none" if v is None else f"{v:.3f} ms"
+
+    def most(v):
+        return "none" if v is None else str(v[0])
+
+    return (f"keyframes: {s['keyframes']} after the first; pose latency p50 {ms(s['pose_latency_p50_ms'])}, "
+            f"p95 {ms(s['pose_latency_p95_ms'])}; device lag p95 {ms(s['device_lag_p95_ms'])}; in flight at "
+            f"most {most(s['host_in_flight'])} on the host, {most(s['device_in_flight'])} on the device")
+
+
 def _device(name: str):
     import torch
 
@@ -110,6 +132,14 @@ def main(argv=None):
 
         viewer = LiveViewer(port=args.viz_port)
         print(f"live viewer: {viewer.url}")
+
+    def hooks(app):
+        """The viewer's hook and, with --profile, the keyframe record."""
+        if viewer is not None:
+            app.viz = VizHook(viewer)
+        if args.profile:
+            app.device_timer.trace_keyframes()
+        return app
 
     if args.meta:
         cfg = PipelineConfig.from_files(args.meta, args.lidar, args.imu, args.register)
@@ -149,9 +179,7 @@ def main(argv=None):
         if args.app == "ins_map":
             from .apps import InsMapApp
 
-            app = InsMapApp(cfg, device)
-            if viewer is not None:
-                app.viz = VizHook(viewer)
+            app = hooks(InsMapApp(cfg, device))
             if args.resume:
                 app.resume_from(args.resume)
             traj = app.run_replay(args.replay, args.max_keyframes)
@@ -161,9 +189,7 @@ def main(argv=None):
         elif args.app == "lo_svn":
             from .apps import LoSvnApp
 
-            app = LoSvnApp(cfg, device, publish=args.publish, anchor=args.anchor)
-            if viewer is not None:
-                app.viz = VizHook(viewer)
+            app = hooks(LoSvnApp(cfg, device, publish=args.publish, anchor=args.anchor))
             if args.resume:
                 app.resume_from(args.resume)
             traj = app.run_replay(args.replay, args.max_keyframes)
@@ -172,9 +198,7 @@ def main(argv=None):
         elif args.app == "odom_ndt":
             from .apps import OdomNdtApp
 
-            app = OdomNdtApp(cfg, device, loop_closure=args.loop_closure, method=args.method)
-            if viewer is not None:
-                app.viz = VizHook(viewer)
+            app = hooks(OdomNdtApp(cfg, device, loop_closure=args.loop_closure, method=args.method))
             traj = app.run_replay(args.replay, args.max_keyframes)
             if args.loop_closure:
                 _, closures = app.refine_loop_closures()
@@ -182,9 +206,7 @@ def main(argv=None):
         else:  # ligo_tc
             from .apps import LigoTcApp
 
-            app = LigoTcApp(cfg, device)
-            if viewer is not None:
-                app.viz = VizHook(viewer)
+            app = hooks(LigoTcApp(cfg, device))
             traj = app.run_replay(args.replay, args.max_keyframes)
 
         stamps, poses = [e.timestamp for e in traj], [e.pose for e in traj]
@@ -195,6 +217,8 @@ def main(argv=None):
             app.stats.write_csv(os.path.join(args.out, "keyframe_stats.csv"))
         if hasattr(app, "timer"):
             print("stages:", app.timer.summary())
+        if args.profile:
+            print(_record_line(app.device_timer))
         print(f"{args.app}: {len(traj)} keyframes -> {args.out}/trajectory.tum")
         if viewer is not None:
             _viz_hold(viewer, args.viz_hold)

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -67,7 +66,6 @@ class InsMapApp:
         self._oor_pending: list = []  # device counts not read yet
         self.device_timer = DeviceStageTimer(self.device)  # per-stage device spans
         self.viz = None  # Optional[common.VizHook], set by the command line's --viz
-        self.process_end_s: List[float] = []  # host clock as each process() returns
 
     @property
     def stats(self) -> Optional[gaussian_map.VoxelStats]:
@@ -81,6 +79,8 @@ class InsMapApp:
         return self.trajectory
 
     def process(self, synced):
+        k = len(self.trajectory)
+        self.device_timer.keyframe_begin(k)
         with self.device_timer.span("project"):
             scan = self.ingest.project(synced)
         nav = synced.ins[-1]
@@ -98,12 +98,12 @@ class InsMapApp:
             self._stats, oor = _accumulate(self._stats, scan.points, scan.mask,
                                            pose_to_device(pose, self.device), capacity)
         self._oor_pending.append(oor)
+        self.device_timer.keyframe_queued(k)
         if len(self._oor_pending) >= OOR_READ_EVERY:
             self._drain_oor(synced.scan.frame_id)
         if self.viz is not None:
             self.viz.push(self.viz.subsample(scan), pose, synced.scan.frame_id)
         self.trajectory.append(TrajectoryEntry(synced.t_end, synced.scan.frame_id, pose, pose))
-        self.process_end_s.append(time.perf_counter())
 
     def flush(self):
         """Read the pending counts and wait for the map statistics."""

@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -169,7 +168,6 @@ class LigoTcApp:
         self.viz = None  # Optional[common.VizHook], set by the command line's --viz
         self.timer = StageTimer()  # host spans
         self.device_timer = DeviceStageTimer(self.device)  # per-stage device spans
-        self.process_end_s: List[float] = []  # host clock as each process() returns
         self._ref_lla: Optional[np.ndarray] = None
         self._origin = None  # numpy (3,) float64
         self._gravity = None
@@ -254,6 +252,8 @@ class LigoTcApp:
         return out
 
     def process(self, synced):
+        k = len(self.trajectory)
+        self.device_timer.keyframe_begin(k)
         with self.timer.span("project"), self.device_timer.span("project"):
             scan = self.ingest.project(synced)
         nav = synced.ins[-1]
@@ -271,7 +271,8 @@ class LigoTcApp:
 
         if self._kf_clouds is None:
             self._first_keyframe(synced, scan, ins_np, ins_sigma, vel_ned)
-            self.process_end_s.append(time.perf_counter())
+            self.device_timer.keyframe_queued(k)
+            self.device_timer.keyframe_published(k)
             return
 
         prev = self._win[-1]
@@ -342,10 +343,12 @@ class LigoTcApp:
             # _fuse writes the optimized states back into self._win
             pose_opt, cov_opt = self._fuse()
         self._insert_keyframe(scan.points, scan.mask, entry)  # body frame; _ligo_step poses it
+        self.device_timer.keyframe_queued(k)
         if self.viz is not None:
             self.viz.push(self.viz.subsample(scan), pose_opt, synced.scan.frame_id, ins_pose=ins_pose)
         self.trajectory.append(TrajectoryEntry(synced.t_end, synced.scan.frame_id, pose_opt,
                                                ins_pose, cov_opt))
+        self.device_timer.keyframe_published(k)
         self.stats.add(KeyFrameStats(
             frame_id=synced.scan.frame_id,
             timestamp=synced.t_end,
@@ -363,7 +366,6 @@ class LigoTcApp:
             # INS-vs-optimized translation gap (pipeline.cpp:745-752)
             pose_rmse=float(np.linalg.norm(ins_np.trans - pose_opt.trans)),
         ))
-        self.process_end_s.append(time.perf_counter())
 
     def _first_keyframe(self, synced, scan, ins_np, ins_sigma, vel_ned):
         """Priors only (pipeline_ligo_tc.cpp:365-404): the first window state

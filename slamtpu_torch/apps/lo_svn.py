@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -211,7 +210,6 @@ class LoSvnApp:
         self._n_keyframes = 0
         self.timer = StageTimer()  # host spans
         self.device_timer = DeviceStageTimer(self.device)  # per-stage device spans
-        self.process_end_s: List[float] = []  # host clock as each process() returns
         self._ref_lla: Optional[np.ndarray] = None
         self._kf_points = None  # (W, N, 3) ring
         self._kf_mask = None
@@ -259,9 +257,10 @@ class LoSvnApp:
                 self._ovf_warned = True
                 log.warning("RegMap truncated %d dilated cells (capacity/grid too small) — "
                             "raise map_capacity or reg_grid_shape", ovf)
-        for synced, ins_pose, dt_ms, res, viz_pts in pending:
+        for k, synced, ins_pose, dt_ms, res, viz_pts in pending:
             published = Pose3(_host(res.pose.rot).astype(np.float64),
                               _host(res.pose.trans).astype(np.float64))
+            self.device_timer.keyframe_published(k)
             if self.viz is not None:
                 self.viz.push(viz_pts, published, synced.scan.frame_id, ins_pose=ins_pose)
             self._record(synced, int(res.num_points), published, ins_pose,
@@ -279,13 +278,16 @@ class LoSvnApp:
         return min(e, max(filled - 1, 0))
 
     def process(self, synced):
+        k = self._n_keyframes
+        self.device_timer.keyframe_begin(k)
         nav_end = synced.ins[-1]
         if self._ref_lla is None:  # first keyframe fixes the geodetic reference
             self._ref_lla = np.asarray(nav_end.lla)
         ins_pose = ins_pose_ned(nav_end, self._ref_lla)
         if self._kf_points is None:
             self._first_keyframe(synced, ins_pose)
-            self.process_end_s.append(time.perf_counter())
+            self.device_timer.keyframe_queued(k)
+            self.device_timer.keyframe_published(k)
             return
         self._origin, shifted = gaussian_map.recenter_origin(
             self._origin, np.asarray(ins_pose.trans), self.svn_cfg.resolution
@@ -328,10 +330,10 @@ class LoSvnApp:
             )
         self._kf_head = (self._kf_head + 1) % int(reg.keyframe_window)
         self._n_keyframes += 1
-        self._pending.append((synced, ins_pose, self.timer.last_ms("svn_step"), res, viz_pts))
+        self._pending.append((k, synced, ins_pose, self.timer.last_ms("svn_step"), res, viz_pts))
+        self.device_timer.keyframe_queued(k)
         if len(self._pending) >= 64:  # bound the in-flight queue
             self.flush()
-        self.process_end_s.append(time.perf_counter())
 
     def _first_keyframe(self, synced, ins_pose):
         """The first sweep only seeds the ring (and the map origin)."""

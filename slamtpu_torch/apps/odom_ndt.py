@@ -62,7 +62,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -420,7 +419,6 @@ class OdomNdtApp:
         self.viz = None  # Optional[common.VizHook], set by the command line's --viz
         self.timer = StageTimer()  # host spans
         self.device_timer = DeviceStageTimer(self.device)  # per-stage device spans
-        self.process_end_s: List[float] = []  # host clock as each process() returns
         self._ref_lla: Optional[np.ndarray] = None
         self._origin = None  # numpy (3,) float64
         self._trust = robust.trust_gain_init_np()
@@ -465,6 +463,8 @@ class OdomNdtApp:
         return self.trajectory
 
     def process(self, synced):
+        k = self._n_keyframes
+        self.device_timer.keyframe_begin(k)
         with self.timer.span("project"), self.device_timer.span("project"):
             scan = self.ingest.project(synced)
         nav = synced.ins[-1]
@@ -479,7 +479,8 @@ class OdomNdtApp:
             # first keyframe: INS prior only (pipeline.cpp:532-543)
             self._origin = np.asarray(ins_pose.trans, np.float64) - 512.0 * self.newton_cfg.resolution
             self._start(ins_pose, ins_sigma, synced, scan)
-            self.process_end_s.append(time.perf_counter())
+            self.device_timer.keyframe_queued(k)
+            self.device_timer.keyframe_published(k)
             return
 
         self._origin, _shifted = gaussian_map.recenter_origin(
@@ -522,11 +523,11 @@ class OdomNdtApp:
         # the detector keeps its own copy of the cloud
         det_cloud = (scan.points.clone(), scan.mask.clone()) if self._detector is not None else None
         viz_pts = self.viz.subsample(scan) if self.viz is not None else None
-        self._pending.append((synced, scan.num_points, ins_pose, ins_sigma, scaled_sigma,
+        self._pending.append((k, synced, scan.num_points, ins_pose, ins_sigma, scaled_sigma,
                               self.timer.last_ms("step"), out, det_cloud, viz_pts))
+        self.device_timer.keyframe_queued(k)
         if len(self._pending) > 2:
             self._drain_one()
-        self.process_end_s.append(time.perf_counter())
 
     def _particle_noise(self):
         """The keyframe's (K, 6) standard-normal particle draws (SVNNDT), or None."""
@@ -542,9 +543,10 @@ class OdomNdtApp:
         self.device_timer.collect()
 
     def _drain_one(self):
-        (synced, num_points, ins_pose, ins_sigma, scaled_sigma, dt_ms, out_dev, det_cloud,
+        (k, synced, num_points, ins_pose, ins_sigma, scaled_sigma, dt_ms, out_dev, det_cloud,
          viz_pts) = self._pending.pop(0)
         out = out_dev.cpu().numpy().astype(np.float64)
+        self.device_timer.keyframe_published(k)
         pose_opt = (out[0:9].reshape(3, 3), out[9:12])
         cov_opt = out[12:48].reshape(6, 6)
         lidar_cov = out[48:84].reshape(6, 6)

@@ -7,13 +7,14 @@ read). Each app, run by both command lines for 3 keyframes, writes the same
 set of files (the port with ``--device cpu``). The odom_ndt trajectory the
 port's command line writes equals ``OdomNdtApp``'s on the same config bit
 for bit; ``--loop-closure`` prints the closure count; ``--profile`` writes
-a torch.profiler trace; ``"use_regmap": false`` in the register file runs
+a torch.profiler trace and prints the keyframe record's summary; ``"use_regmap": false`` in the register file runs
 odom_ndt and lo_svn on the sorted-key path as the reference's command
 line does; the default ``--device cuda`` fails without a card,
 naming the flag; importing the module starts no CUDA context.
 """
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -117,6 +118,17 @@ def test_profile_writes_a_trace(setup):
     out = _run(tmain.main, "viz_lidar", setup, "port_profile", "--device", "cpu", "--profile")
     with open(os.path.join(out, "torch_trace.json")) as f:
         assert "traceEvents" in json.load(f)
+
+
+def test_profile_prints_the_keyframe_record(setup, capsys):
+    """``--profile`` switches on lo_svn's keyframe record: 3 keyframes, the
+    poses published at the end (the second still on the host as the third
+    begins), the CPU's work done as it is queued."""
+    _run(tmain.main, "lo_svn", setup, "port_record", "--device", "cpu", "--profile")
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("keyframes:")]
+    assert len(lines) == 1
+    assert re.fullmatch(r"keyframes: 2 after the first; pose latency p50 [0-9.]+ ms, p95 [0-9.]+ ms; "
+                        r"device lag p95 0\.000 ms; in flight at most 1 on the host, 0 on the device", lines[0]), lines
 
 
 @pytest.mark.parametrize("app", ["odom_ndt", "lo_svn"])
