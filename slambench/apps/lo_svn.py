@@ -50,3 +50,11 @@ def state(app):
     ring = {j: (app._kf_points[j % W].double().cpu().numpy(), app._kf_mask[j % W].cpu().numpy())
             for j in range(max(0, n - W), n)}
     return kept, ring
+
+
+def published(app) -> int:
+    """How many keyframes the app has published, each with its pose on the
+    host: the length of its trajectory list. Not ``app.trajectory``, whose
+    property calls ``flush()``; nothing here reads the device, so a look
+    after every ``process()`` adds no wait and changes no schedule."""
+    return len(app._trajectory)

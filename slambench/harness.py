@@ -79,14 +79,17 @@ def cell_metrics(bench, cell_name: str, trace: bool) -> List[dict]:
 class Driver:
     """Feeds the traffic into the app, sweep by sweep."""
 
-    def __init__(self, app, lap: tr.Lap):
+    def __init__(self, app, lap: tr.Lap, published):
         self.app = app
+        self.published = published  # the app adapter's count of keyframes with a pose on the host
         self.feed = tr.Feed(lap)
         ing = app.ingest
         self.assembler, self.anpp, self.sync = ing.assembler, ing.anpp, ing.sync
         self.kf_sweeps: List[int] = []  # the global sweep of each keyframe, in order
         self.returns: List[float] = []  # host clock as each process() returns
         self.ingest_s: List[float] = []  # host seconds of each sweep's ingest
+        self.handed: List[float] = []  # host clock as each keyframe's sweep starts to be handed over
+        self.posed: List[float] = []  # host clock at the first return after which each keyframe is published
 
     def _ingest(self, events):
         out, batch = [], []
@@ -122,10 +125,29 @@ class Driver:
         self.ingest_s.append(time.perf_counter() - t)
         for s in synced:
             self.kf_sweeps.append(g - ((g - s.scan.frame_id) % 65536))
+            self.handed.append(t)
             with rf("bench_process"):
                 self.app.process(s)
             self.returns.append(time.perf_counter())
+            self._note_published(self.returns[-1])
         return len(synced)
+
+    def flush(self):
+        """The app's flush(), after which every keyframe has its pose on the
+        host."""
+        self.app.flush()
+        self._note_published(time.perf_counter())
+
+    def _note_published(self, t: float):
+        """Stamp ``t`` on each keyframe published since the last look: a
+        count the app holds on the host, so the look reads nothing from the
+        device and changes no schedule."""
+        n = self.published(self.app)
+        self.posed.extend([t] * (n - len(self.posed)))
+
+    def pose_latency_s(self, k0: int, k1: int) -> List[float]:
+        """Host seconds from hand-over to publication of keyframes k0..k1-1."""
+        return [o - i for i, o in zip(self.handed[k0:k1], self.posed[k0:k1])]
 
 
 class Record:
@@ -200,10 +222,10 @@ def run_cell(name: str, cfg: dict, traffic: dict, metrics: List[dict], seed: int
     lap = tr.Lap(traffic, sn.Sensor.from_config(cfg["sensor"]), seed, device, n_sweeps=n_sweeps)
     _sync(device)
     marks.append(("traffic", time.perf_counter()))
-    drv = Driver(app, lap)
+    drv = Driver(app, lap, adapter.published)
     while len(drv.kf_sweeps) < int(cfg["warmup_keyframes"]):
         drv.step()
-    app.flush()
+    drv.flush()
     _sync(device)
     marks.append(("warm-up", time.perf_counter()))
     setup_s = time.perf_counter() - t_start
@@ -253,7 +275,7 @@ def run_cell(name: str, cfg: dict, traffic: dict, metrics: List[dict], seed: int
                 stretch_prof, prof = prof, None
             if done:
                 break
-        app.flush()
+        drv.flush()
         _sync(device)
         t1 = time.perf_counter()
         _print_host_share(host0, _host_clocks(), t1 - t0)
@@ -273,6 +295,11 @@ def run_cell(name: str, cfg: dict, traffic: dict, metrics: List[dict], seed: int
         fifths = np.histogram(np.asarray(drv.returns[kf0:kf1]) - t0, bins=5, range=(0, t1 - t0))[0]
         print(f"keyframes/s by fifth of the window: {[round(float(5 * n / (t1 - t0)), 3) for n in fifths]}",
               file=sys.stderr)
+    latency_s = drv.pose_latency_s(kf0, kf1)
+    if latency_s:
+        p50, p95 = 1e3 * np.percentile(latency_s, [50, 95])
+        print(f"pose latency, hand-over to publication, ms: p50 {p50:.6g}, p95 {p95:.6g}, "
+              f"over {len(latency_s)} keyframes", file=sys.stderr)
     peak = int(torch.cuda.max_memory_allocated(device)) if cuda else 0
     traj = app.trajectory
     published = {j: (np.asarray(traj[j].pose.rot, np.float64), np.asarray(traj[j].pose.trans, np.float64),
@@ -316,7 +343,7 @@ def run_cell(name: str, cfg: dict, traffic: dict, metrics: List[dict], seed: int
 
     run = Run(name=name, cfg=cfg, seed=seed, seconds=seconds, setup_s=setup_s, t0=t0, t1=t1,
               window_s=t1 - t0, n_keyframes=kf1 - kf0, window_kfs=range(kf0, kf1),
-              returns=drv.returns[kf0:kf1], plain_t0=plain[0][0],
+              returns=drv.returns[kf0:kf1], pose_latency_s=latency_s, plain_t0=plain[0][0],
               plain_s=plain[1][0] - plain[0][0], plain_returns=drv.returns[plain[0][1]:plain[1][1]], ingest_s=drv.ingest_s[sw0:], stage_ms=stage_ms,
               map_span=adapter.MAP_SPAN, register_span=adapter.REGISTER_SPAN, rec=rec,
               timestamps=timestamps, syncs=syncs,

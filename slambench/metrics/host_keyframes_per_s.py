@@ -1,8 +1,8 @@
 """Keyframes the port published over the host's wall time (host clock), in
 the window's plain part: with --trace 1 the harness.CYCLE_SWEEPS sweeps
-after those whose syncs are counted, before the profiler starts. It stands
-per layer: the rate is set by the host's speed, which spreads too widely
-between runs for an end-to-end bound."""
+after those whose syncs are counted, before the profiler starts. The
+end-to-end rate is keyframes_per_s, over the whole --trace 0 window; this
+one reads the traced run beside the per-layer spans."""
 
 
 def read(run):

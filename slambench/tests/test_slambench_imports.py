@@ -41,6 +41,45 @@ print(json.dumps({"forbidden": harness.forbidden_modules(),
     assert "slamtpu_torch" in out["top"] and "slamtpu" not in out["top"] and "jax" not in out["top"]
 
 
+def test_window_metrics_by_trace_mode_and_no_flush_from_the_reads():
+    """A small run reports keyframes_per_s and pose_latency_p95_ms with
+    --trace 0 and neither with --trace 1, and the adapter's published()
+    makes the app flush no more often than a run without those reads."""
+    code = """
+import json, torch
+torch.set_num_threads(2)
+from slambench import harness
+from slambench.apps import lo_svn
+from slambench.tests.conftest import small_cell
+from slamtpu_torch.apps.lo_svn import LoSvnApp
+flushes = [0]
+flush = LoSvnApp.flush
+def counted(self):
+    flushes[0] += 1
+    flush(self)
+LoSvnApp.flush = counted
+bench, cell, cfg, traffic = small_cell(128, 32, 2)
+def run(trace):
+    flushes[0] = 0
+    r = harness.run_cell(cell["name"], cfg, traffic, harness.cell_metrics(bench, cell["name"], trace),
+                         5, 1e9, trace, "cpu", n_sweeps=14)
+    return {"metrics": r["metrics"], "flushes": flushes[0]}
+out = {"plain": run(False), "traced": run(True)}
+lo_svn.published = lambda app: 0  # no reads
+out["unread"] = run(False)
+print(json.dumps(out))
+"""
+    r = _python(code)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    new = {"keyframes_per_s", "pose_latency_p95_ms"}
+    assert new <= set(out["plain"]["metrics"]), out["plain"]
+    assert all(out["plain"]["metrics"][k]["value"] > 0 for k in new)
+    assert not new & set(out["traced"]["metrics"]), out["traced"]
+    assert "pose_latency_p95_ms" not in out["unread"]["metrics"]
+    assert out["plain"]["flushes"] == out["unread"]["flushes"] == out["traced"]["flushes"]
+
+
 def test_traffic_and_reference_import_nothing_of_the_port():
     code = """
 import json, sys, torch

@@ -1,16 +1,19 @@
-"""The metric arithmetic: the p95 over sweeps, RPE against a known
-trajectory, the pair-kernel work against chip_smoke.pair_flops, and the
+"""The metric arithmetic: the p95 over sweeps, the window's rate and pose
+latency from the harness's stamps, RPE against a known trajectory, the pair-kernel work against chip_smoke.pair_flops, and the
 reading of a profiler trace."""
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
 from slambench import harness, kernel_costs
+from slambench.apps import lo_svn as lo_svn_adapter
 from slambench import sensor as sn
 from slambench import trace as trc
 from slambench import traffic as tr
-from slambench.metrics import (device_idle_pct, host_keyframes_per_s, host_sweep_time_p95_ms, launches_per_kf,
-                               pair_kernel_roofline, rpe_mm)
+from slambench.metrics import (device_idle_pct, host_keyframes_per_s, host_sweep_time_p95_ms, keyframes_per_s,
+                               launches_per_kf, pair_kernel_roofline, pose_latency_p95_ms, rpe_mm)
 from slambench.reference import common as c
 
 from .test_slambench_traffic import ARC
@@ -26,6 +29,73 @@ def test_sweep_time_p95_is_over_every_sweep():
     assert host_keyframes_per_s.read(run) == pytest.approx(100 / 12.5)
     run = harness.Run(plain_t0=100.0, plain_returns=[], plain_s=1.0)
     assert host_keyframes_per_s.read(run) is None and host_sweep_time_p95_ms.read(run) is None
+
+
+class _QueueApp:
+    """An app that keeps its keyframes in flight and publishes them
+    ``depth`` at a time, as lo_svn does 64 at a time; ``trajectory``, which
+    would flush, must not be read."""
+
+    def __init__(self, depth):
+        self.depth, self.flushes, self.pending, self._trajectory = depth, 0, 0, []
+        self.ingest = SimpleNamespace(assembler=None, anpp=None, sync=None)
+
+    @property
+    def trajectory(self):
+        raise AssertionError("read through the property that flushes")
+
+    def process(self, _synced):
+        self.pending += 1
+        if self.pending == self.depth:
+            self.flush()
+
+    def flush(self):
+        self.flushes += 1
+        self._trajectory += [None] * self.pending
+        self.pending = 0
+
+
+def _stamped_window(monkeypatch, n_kf, depth):
+    """A window of ``n_kf`` keyframes, one a sweep, through the harness's
+    Driver on a clock that moves 0.05 s a reading: keyframe k is handed
+    over at 0.15 k and returns from process() at 0.15 k + 0.1; the app
+    publishes ``depth`` at a time, and the closing flush (read at 0.15 n_kf)
+    publishes the rest."""
+    ticks = iter(0.05 * np.arange(10_000))
+    monkeypatch.setattr(harness, "time", SimpleNamespace(perf_counter=lambda: float(next(ticks))))
+    app = _QueueApp(depth)
+    drv = harness.Driver(app, None, lo_svn_adapter.published)
+    drv.feed = SimpleNamespace(g=0, next_sweep=lambda: [])
+    drv._ingest = lambda _events: [SimpleNamespace(scan=SimpleNamespace(frame_id=0))]
+    for _ in range(n_kf):
+        drv.step()
+    drv.flush()
+    assert app.flushes == n_kf // depth + 1
+    return harness.Run(n_keyframes=n_kf, window_s=0.15 * n_kf, pose_latency_s=drv.pose_latency_s(0, n_kf))
+
+
+# keyframes 0-3 and 4-7 published at the return of the 4th's process()
+# (0.55, 0.4, 0.25, 0.1 s after their hand-over), 8 and 9 by the closing
+# flush at 1.5 s (handed over at 1.2 and 1.35)
+LATENCY_S = [0.55, 0.4, 0.25, 0.1] * 2 + [0.3, 0.15]
+
+
+@pytest.mark.parametrize("metric, n_kf, want", [
+    ("keyframes_per_s", 10, 10 / 1.5),
+    ("pose_latency_p95_ms", 10, 1e3 * np.percentile(LATENCY_S, 95)),
+    ("keyframes_per_s", 0, None),
+    ("pose_latency_p95_ms", 0, None),
+])
+def test_window_rate_and_pose_latency(monkeypatch, metric, n_kf, want):
+    """The end-to-end readers over a window stamped by the harness's
+    Driver, keyframes published only by the closing flush among them, and
+    nothing read from an empty window."""
+    run = _stamped_window(monkeypatch, n_kf, depth=4)
+    if n_kf:
+        assert run.pose_latency_s == pytest.approx(LATENCY_S)
+    reader = {"keyframes_per_s": keyframes_per_s, "pose_latency_p95_ms": pose_latency_p95_ms}[metric]
+    got = reader.read(run)
+    assert got is None if want is None else got == pytest.approx(want)
 
 
 def test_rpe_against_a_known_trajectory():

@@ -31,7 +31,7 @@ def test_sound_run_matches_the_reference(cell=CELL):
     r = _run(cell)
     assert r["correct"], r["compared"]
     assert r["attempted"] >= 3 and r["failed"] == 0
-    assert set(r["metrics"]) == {"rpe_mm", "setup_s"}
+    assert set(r["metrics"]) == {"rpe_mm", "setup_s", "keyframes_per_s", "pose_latency_p95_ms"}
     assert set(r["compared"]) == set(SMALL_SIZE_LIMITS)
 
 
