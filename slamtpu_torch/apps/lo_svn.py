@@ -9,6 +9,17 @@ and insert the new cloud into the ring. All of it is queued on one device
 without host syncs in between; results are read back in batches (``flush``)
 so the next sweep's decode overlaps the device work.
 
+On a CUDA device the registration goes through the app's ``SvnGraph``
+(``ndt/svn.py``): the first RegMap keyframe runs eagerly, the second
+captures the SVN flow and the polish as one CUDA graph, and every keyframe
+after replays it with its points, mask, prior, particle draws and source
+covariances copied into the graph's static buffers, and the RegMap's
+tables copied in on rebuild keyframes only (nothing is captured again).
+The map build, projection, deskew, source covariances, ring insert and
+the posterior (``eigh``) stay eager; each keyframe's result is a copy of
+the graph's outputs, so the 64 kept in flight until ``flush`` stay
+distinct. On the CPU the registration is ``svn_align_reg`` itself.
+
 In the KDTREE search mode (``svn_search_method``) the RegMap comes from
 ``build_regmap_kdtree``, the NDT pair kernel gates its slots at the gather
 pose, and the polish stays on the NDT score (the layout has no aux table),
@@ -40,7 +51,7 @@ from ..lidar.project import project_frame_packed
 from ..mapping import gaussian_map
 from ..ndt.gicp import regularize_plane_covariance, sweep_point_covariances
 from ..ndt.regmap import build_regmap, build_regmap_kdtree
-from ..ndt.svn import SvnConfig, svn_align, svn_align_reg
+from ..ndt.svn import SvnConfig, SvnGraph, svn_align, svn_align_reg
 from ..runtime import checkpoint
 from ..runtime.config import PipelineConfig
 from ..runtime.device_timer import DeviceStageTimer
@@ -85,6 +96,7 @@ def _lo_svn_core(
     scan_grid: tuple = None,  # (cols, sub) of the sweep: stencil covariances (else voxel ones)
     exclude_recent: Optional[int] = None,  # rebuilds skip the newest ring clouds
     timer=None,
+    svn_graph: Optional[SvnGraph] = None,  # the RegMap registration (else svn_align_reg)
 ):
     """One keyframe on a projected sweep: (new regmap, KeyframeResult).
 
@@ -127,8 +139,8 @@ def _lo_svn_core(
         if sorted_key:
             res = svn_align(new_points, new_mask, gmap, prior, svn_cfg, init_noise=init_noise)
         else:
-            res = svn_align_reg(new_points, new_mask, regmap, prior, svn_cfg, grid_shape,
-                                src_cov=src_cov, init_noise=init_noise)
+            res = (svn_graph or svn_align_reg)(new_points, new_mask, regmap, prior, svn_cfg, grid_shape,
+                                               src_cov=src_cov, init_noise=init_noise)
             n_voxels = regmap.num_valid
     published = res.pose if publish_svn else prior
     with _span(timer, "ring_insert"):
@@ -149,6 +161,7 @@ def _lo_svn_step_packed(
     head: int, init_noise, regmap_in, svn_cfg: SvnConfig, capacity: int, min_points: int,
     grid_shape: tuple, publish_svn: bool = True, scan_grid: tuple = None, filters=None,
     deskew: bool = True, exclude_recent: Optional[int] = None, timer=None,
+    svn_graph: Optional[SvnGraph] = None,
 ):
     """The whole per-keyframe device path: projection + filtering, INS
     deskew, then ``_lo_svn_core``. The result carries num_points."""
@@ -161,7 +174,7 @@ def _lo_svn_step_packed(
     regmap, res = _lo_svn_core(
         kf_points, kf_mask, new_points, scan.mask, prior, origin, rebuild, ins_anchor, head,
         init_noise, regmap_in, svn_cfg, capacity, min_points, grid_shape, publish_svn,
-        scan_grid, exclude_recent, timer,
+        scan_grid, exclude_recent, timer, svn_graph,
     )
     return regmap, res._replace(num_points=scan.num_points)
 
@@ -202,6 +215,7 @@ class LoSvnApp:
         self.grid_shape = tuple(reg.reg_grid_shape) if reg.use_regmap else None
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
+        self._svn_graph = SvnGraph()  # the registration, replayed as a CUDA graph on a card
         self._trajectory: List[TrajectoryEntry] = []
         self._stats_archive = StatsArchive()
         self._pending: List[tuple] = []  # keyframes whose results are on the device
@@ -326,7 +340,7 @@ class LoSvnApp:
                 self._kf_head, init_noise, self._cadence.regmap, self.svn_cfg,
                 reg.map_capacity, reg.min_points_per_voxel, self.grid_shape,
                 self.publish == "svn", self._scan_grid, self.ingest.filters, self.cfg.deskew,
-                self._exclude_recent(), self.device_timer,
+                self._exclude_recent(), self.device_timer, svn_graph=self._svn_graph,
             )
         self._kf_head = (self._kf_head + 1) % int(reg.keyframe_window)
         self._n_keyframes += 1

@@ -30,6 +30,17 @@ the reference's ``jax.named_scope``: ``svn_gather``,
 ``svn_particle_eval``, ``svn_stein_update``, ``svn_retract``,
 ``svn_polish_pre``, ``svn_polish``, ``svn_final_score`` and
 ``svn_posterior``, so a profiler trace splits a keyframe by stage.
+
+``SvnGraph`` replays ``svn_align_reg``'s flow and polish as one CUDA graph
+where the points are on a CUDA device and one rank holds every particle
+(``replays``); the CPU, ``dist.sharded``'s ranks, ``svn_align`` and a bare
+``svn_align_reg`` call stay eager. Per configuration it runs eagerly once,
+then captures once on static buffers (points, mask, prior, draws, source
+covariances, the RegMap's device tensors); later calls copy their inputs
+in, the RegMap's tables only after a rebuild, and replay it under a
+``svn_graph_replay`` span. The posterior stays eager (``eigh`` reads the
+device) on copies of the graph's outputs. A replay runs the captured
+kernels, so the stage spans above appear only in the eager runs.
 """
 from __future__ import annotations
 
@@ -42,11 +53,11 @@ from ..core import linalg, se3
 from ..core.const import constant
 from ..core.se3 import Pose3
 from ..mapping import voxel
-from . import objective
+from . import fused_math, objective
 from .constants import gauss_constants
 from .fused_math import gate_params, rows_objective
 from .objective import NdtObjective
-from .regmap import grid_rows
+from .regmap import RegMap, grid_rows
 
 # particle init sigmas around the prior, tangent order [omega, v]
 INIT_SIGMAS = (0.01, 0.01, 0.02, 0.05, 0.05, 0.05)
@@ -150,6 +161,21 @@ def svn_align_reg(
 
     The initial particle draws are ``init_noise`` when given (tests pass in
     the reference's draws), else drawn from ``generator``."""
+    make_obj, polish_make_obj = _reg_objectives(points, mask, regmap, cfg, grid_shape, src_cov)
+    if init_noise is None:
+        init_noise = _draws(cfg, points, generator)
+    return _svn_loop(make_obj, points.dtype, prior, init_noise, cfg, polish_make_obj, _ranks)
+
+
+def _draws(cfg: SvnConfig, points, generator):
+    return torch.randn((cfg.num_particles, 6), generator=generator, dtype=points.dtype,
+                       device=points.device)
+
+
+def _reg_objectives(points, mask, regmap, cfg: SvnConfig, grid_shape: tuple, src_cov):
+    """``svn_align_reg``'s objectives: (make_obj, polish_make_obj), each a
+    function of the pose at which the rows are looked up (polish_make_obj
+    None unless the polish runs on the plane-to-plane cost)."""
     d1, d2, _ = gauss_constants(cfg.resolution, cfg.outlier_ratio)
     ptsT = points.t().contiguous()
 
@@ -181,11 +207,7 @@ def svn_align_reg(
             return lambda pose: rows_objective(ptsT, regmap.packed_aux, rows, pose, 0.0, 25.0,
                                                cfg.hess_lambda, src_covT=scovT)
 
-    if init_noise is None:
-        init_noise = torch.randn(
-            (cfg.num_particles, 6), generator=generator, dtype=points.dtype, device=points.device
-        )
-    return _svn_loop(make_obj, points.dtype, prior, init_noise, cfg, polish_make_obj, _ranks)
+    return make_obj, polish_make_obj
 
 
 def svn_align(
@@ -211,9 +233,7 @@ def svn_align(
         return objective.score_grad_hess(points, mask, pose, gmap, d1, d2, offsets, cfg.hess_lambda)
 
     if init_noise is None:
-        init_noise = torch.randn(
-            (cfg.num_particles, 6), generator=generator, dtype=points.dtype, device=points.device
-        )
+        init_noise = _draws(cfg, points, generator)
     return _svn_loop(lambda _mean_pose: obj_fn, points.dtype, prior, init_noise, cfg)
 
 
@@ -223,6 +243,15 @@ def _svn_loop(make_obj, dtype, prior: Pose3, init_noise, cfg: SvnConfig,
     the K particles: this rank holds rows ``rank * L .. (rank + 1) * L`` of
     the draws (L = K / world), gathers every rank's particles for the
     kernel's columns, and sums the moments and tangents over the ranks."""
+    flow = _svn_flow(make_obj, dtype, prior, init_noise, cfg, polish_make_obj, ranks)
+    return _svn_posterior(*flow, dtype, cfg, ranks)
+
+
+def _svn_flow(make_obj, dtype, prior: Pose3, init_noise, cfg: SvnConfig,
+              polish_make_obj=None, ranks=_OneDevice):
+    """The particle flow and the polish: (published pose, this rank's
+    particles, iterations, converged, score). No host sync and static
+    shapes, so ``SvnGraph`` captures it as it stands."""
     K = cfg.num_particles
     L = K // ranks.world
     dev = prior.trans.device
@@ -291,7 +320,16 @@ def _svn_loop(make_obj, dtype, prior: Pose3, init_noise, cfg: SvnConfig,
     else:
         with record_function("svn_final_score"):
             score = make_obj(mean_pose)(mean_pose).score.to(torch.float32)
+    return mean_pose, particles, iters, converged, score
 
+
+def _svn_posterior(mean_pose: Pose3, particles: Pose3, iters, converged, score, dtype,
+                   cfg: SvnConfig, ranks=_OneDevice) -> SvnResult:
+    """The particle-spread covariance at the published pose, and the
+    result. Its eigenvalue floor reads the device (``eigh``), so it stays
+    out of ``SvnGraph``'s capture."""
+    K = cfg.num_particles
+    L = K // ranks.world
     with record_function("svn_posterior"):
         # posterior: sample covariance of the particles' tangents at the pose
         mean_b = Pose3(mean_pose.rot.expand(L, 3, 3), mean_pose.trans.expand(L, 3))
@@ -300,6 +338,126 @@ def _svn_loop(make_obj, dtype, prior: Pose3, init_noise, cfg: SvnConfig,
             centered = tangents - ranks.all_reduce(torch.sum(tangents, dim=0, keepdim=True)) / K
             cov = ranks.all_reduce(centered.t() @ centered) / (K - 1)
         else:
-            cov = torch.diag(1e-6 * sigmas ** 2)
+            cov = torch.diag(1e-6 * constant(INIT_SIGMAS, dtype, mean_pose.trans.device) ** 2)
         cov = linalg.eig_floor_psd(cov, cfg.cov_eig_floor)
     return SvnResult(mean_pose, cov, iters, converged, ranks.gather(particles), score)
+
+
+def replays(points: torch.Tensor, ranks=_OneDevice) -> bool:
+    """Whether ``SvnGraph`` replays a captured graph for these inputs:
+    points on a CUDA device and one rank (the collectives of
+    ``dist.sharded``'s process group stay eager)."""
+    return points.is_cuda and ranks is _OneDevice
+
+
+def _capture(fn, device):
+    """(graph, outputs, pair-kernel launches of one replay) of ``fn``
+    captured as one CUDA graph. ``fn`` runs once on the capture stream
+    first, outside the capture, so that what that stream needs (the pair
+    kernel's tickets, the cuBLAS workspace) exists before the capture."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn()
+        torch.cuda.current_stream().wait_stream(stream)
+        before = dict(fused_math.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            out = fn()
+    # the capture ran no kernel: its launches count at each replay
+    launches = {k: fused_math.LAUNCHES[k] - before[k] for k in before}
+    fused_math.LAUNCHES.update(before)
+    return graph, out, launches
+
+
+def _on_device(t) -> bool:
+    return isinstance(t, torch.Tensor) and t.is_cuda
+
+
+class _Captured:
+    """One captured flow and polish: the static inputs the graph reads, the
+    graph and its static outputs."""
+
+    def __init__(self, points, mask, regmap, prior: Pose3, src_cov, init_noise, cfg: SvnConfig,
+                 grid_shape: tuple):
+        self.points, self.mask = points.clone(), mask.clone()
+        self.prior = Pose3(prior.rot.clone(), prior.trans.clone())
+        self.noise = init_noise.to(points.dtype).clone()
+        self.src_cov = None if src_cov is None else src_cov.clone()
+        # the RegMap's device tensors (its resolution, on the CPU, is in the key)
+        self.regmap = RegMap(*(t.clone() if _on_device(t) else t for t in regmap))
+        self.source = regmap  # the RegMap whose tables the buffers hold
+
+        def flow():
+            make_obj, polish_make_obj = _reg_objectives(self.points, self.mask, self.regmap, cfg,
+                                                        grid_shape, self.src_cov)
+            return _svn_flow(make_obj, self.points.dtype, self.prior, self.noise, cfg, polish_make_obj)
+
+        self.graph, self.out, self.launches = _capture(flow, points.device)
+
+    def load(self, points, mask, regmap, prior: Pose3, src_cov, init_noise):
+        """Copy a keyframe's inputs into the static buffers; the RegMap's
+        tables only when it is another RegMap than the last (a rebuild)."""
+        self.points.copy_(points)
+        self.mask.copy_(mask)
+        self.prior.rot.copy_(prior.rot)
+        self.prior.trans.copy_(prior.trans)
+        self.noise.copy_(init_noise)
+        if self.src_cov is not None:
+            self.src_cov.copy_(src_cov)
+        if regmap is not self.source:
+            for buf, t in zip(self.regmap, regmap):
+                if _on_device(buf):
+                    buf.copy_(t)
+            self.source = regmap
+
+    def replay(self):
+        """Run the graph on the current stream; the static outputs' values
+        hold until the next replay."""
+        with record_function("svn_graph_replay"):
+            self.graph.replay()
+        for k, n in self.launches.items():
+            fused_math.LAUNCHES[k] += n
+
+
+class SvnGraph:
+    """``svn_align_reg`` with the flow and polish replayed as one CUDA graph
+    (the module's docstring says when). Each configuration, keyed by
+    ``SvnConfig``, N, ``grid_shape``, dtype, device, the RegMap's row
+    count, resolution and aux table, and whether source covariances come,
+    runs eagerly once, so that the kernel library, the cuBLAS and cuSOLVER
+    handles and the constants exist before its one capture. Each replay's
+    outputs are copied out, so results kept in flight share no memory."""
+
+    def __init__(self):
+        self._graphs = {}  # key -> None (ran eagerly once) or _Captured
+        self.captures = 0
+
+    def __call__(self, points, mask, regmap, prior: Pose3, cfg: SvnConfig = SvnConfig(),
+                 grid_shape: tuple = (256, 256, 64), src_cov: Optional[torch.Tensor] = None,
+                 init_noise: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None, _ranks=_OneDevice) -> SvnResult:
+        if not replays(points, _ranks):
+            return svn_align_reg(points, mask, regmap, prior, cfg, grid_shape, src_cov, init_noise,
+                                 generator, _ranks)
+        if init_noise is None:
+            init_noise = _draws(cfg, points, generator)
+        key = (cfg, points.shape[0], tuple(grid_shape), points.dtype, points.device,
+               regmap.packed.shape[0], float(regmap.resolution), regmap.packed_aux is not None,
+               src_cov is not None)
+        if key not in self._graphs:
+            self._graphs[key] = None
+            return svn_align_reg(points, mask, regmap, prior, cfg, grid_shape, src_cov, init_noise)
+        run = self._graphs[key]
+        if run is None:
+            run = self._graphs[key] = _Captured(points, mask, regmap, prior, src_cov, init_noise, cfg,
+                                                grid_shape)
+            self.captures += 1
+        else:
+            run.load(points, mask, regmap, prior, src_cov, init_noise)
+        run.replay()
+        mean_pose, particles, iters, converged, score = run.out
+        return _svn_posterior(Pose3(mean_pose.rot.clone(), mean_pose.trans.clone()),
+                              Pose3(particles.rot.clone(), particles.trans.clone()),
+                              iters.clone(), converged.clone(), score.clone(), points.dtype, cfg)
