@@ -16,7 +16,8 @@ Per keyframe (run/pipeline_ligo_tc.cpp:339-622):
 The first keyframe places the priors, with WGS-84 gravity (:365-404).
 
 Dtypes: registration in float32 (clouds, map, the prediction cast to
-float32); preintegration, the factors and the smoother in float64 on the
+float32; the map's voxel statistics computed in float64, as odom_ndt's
+``_register_step`` builds it); preintegration, the factors and the smoother in float64 on the
 device. The host keeps the window as numpy, as the reference does: it reads
 the step's result vector and the window solution once per keyframe each,
 and ships the factor arrays through pinned memory as one buffer. Other host

@@ -45,12 +45,17 @@ the odometry chain, the verified closures and the INS priors and rewrites
 the trajectory. Checkpoints do not carry the detector, as in the
 reference: after a resume it starts empty.
 
-Dtypes: registration runs in float32. The window carry (poses, priors,
-between factors, sqrt-information) is float64 on every device: the
-smoother is a 48x48 problem and Hopper has float64 units. (The reference
-keeps it in float64 under x64, as its tests run, and in float32 on the
-TPU.) The window fill count ``n`` is a host integer: it advances by one per
-keyframe up to the window size, so no device value decides it.
+Dtypes: registration runs in float32. The target map's voxel statistics
+are computed in float64 (``MAP_DTYPE``) from the float32 target cloud, as
+the source's double-precision voxel covariances: in float32 the voxels
+whose points lie nearly on a line (one scan ring on the ground) fail the
+eigenvalue gate at random, and the map loses a few percent of its voxels
+a keyframe. (The reference builds it in float32.) The window carry (poses, priors, between factors,
+sqrt-information) is float64 on every device: the smoother is a 48x48
+problem and Hopper has float64 units. (The reference keeps it in float64
+under x64, as its tests run, and in float32 on the TPU.) The window fill
+count ``n`` is a host integer: it advances by one per keyframe up to the
+window size, so no device value decides it.
 
 Host syncs per keyframe in this module: one per Newton outer iteration
 (the loop's exit test; one per step for ``newton_align``; none for
@@ -97,10 +102,13 @@ PARTICLE_SEED = 1234
 # the RegMap grid of the GICP engines and the pyramid on the sorted-key path
 # (the reference's ``grid_shape or (256, 256, 64)``)
 SORTED_KEY_GRID = (256, 256, 64)
+# the dtype the target map's voxel statistics are computed in (see Dtypes)
+MAP_DTYPE = torch.float64
 
 
 def _register_step(
-    target_points,  # (M*N, 3) previous keyframe cloud(s), world frame
+    target_points,  # (M*N, 3) previous keyframe cloud(s), world frame; the
+    #   Gaussian map is built in float64 and registered against in float32
     target_mask,
     new_points,  # (N, 3) body frame
     new_mask,
@@ -149,7 +157,7 @@ def _register_step(
     if method == "NDT_OMP_MULTIRES":
         with _span(timer, "map_build"):
             levels = build_pyramid(
-                target_points, target_mask, origin, [2.0 * cfg.resolution, cfg.resolution],
+                target_points.to(MAP_DTYPE), target_mask, origin, [2.0 * cfg.resolution, cfg.resolution],
                 capacity, grid_shape or SORTED_KEY_GRID, min_points,
                 [max(cfg.max_iterations // 3, 3), cfg.max_iterations],
             )
@@ -160,8 +168,9 @@ def _register_step(
     regmap = regmap_cache
     if regmap_cache is None or rebuild:
         with _span(timer, "map_build"):
-            gmap = gaussian_map.build_map(target_points, target_mask, origin, cfg.resolution,
-                                          capacity=capacity, min_points_per_voxel=min_points)
+            gmap = gaussian_map.to_float32(gaussian_map.build_map(
+                target_points.to(MAP_DTYPE), target_mask, origin, cfg.resolution, capacity=capacity,
+                min_points_per_voxel=min_points))
             kd_radius = svn_cfg.kd_radius if method == "SVNNDT" else cfg.kd_radius
             build = build_regmap
             if aniso:
@@ -287,9 +296,10 @@ def _odom_fused_step(
                          min_points, grid_shape, method=method, inner_iters=inner_iters,
                          final_eval=final_eval, timer=timer, svn_cfg=svn_cfg,
                          init_noise=init_noise, scan_grid=scan_grid)
-    with _span(timer, "covariance"):
+    with _span(timer, "blend"):
         blended32, w = robust.deviation_gated_blend(guess, res.pose, max_td, max_rd)
         blended = se3.cast(blended32, cd)
+    with _span(timer, "covariance"):
         # LiDAR covariance from the Hessian (pipeline.cpp:594-603)
         eye6 = torch.eye(6, dtype=cd, device=flat.device)
         lidar_cov = -torch.linalg.inv_ex(res.hessian.to(cd) + 1e-6 * eye6)[0]

@@ -1,5 +1,6 @@
 """Failure-softening logic: GPS-denial trust-gain scheduling and the
-deviation-gated pose blend (port of slamtpu/fusion/robust.py).
+deviation-gated pose blend (port of slamtpu/fusion/robust.py; the blend
+is geodesic where the original's is chordal, see deviation_gated_blend).
 
 The ``_np`` twins are host numpy, copied unchanged; the rest are tensor
 functions that keep the dtype and device of their inputs.
@@ -74,18 +75,26 @@ def deviation_gated_blend(
 ):
     """Blend a registration result toward a prediction when it deviates too
     much (pipeline.cpp:570-592): trust weight w = min(max(0, 1 - |dt|/maxT),
-    max(0, 1 - |dr|/maxR)), blended linearly in the global Logmap
-    coordinates (a chordal blend, as the reference). Returns
-    (blended_pose, w)."""
+    max(0, 1 - |dr|/maxR)), and the blend moves from the prediction a share
+    w of the way to the measurement along the geodesic between them,
+    Retract(pred, w Local(pred, meas)). Returns (blended_pose, w).
+
+    This departs from slamtpu/fusion/robust.py, which blends linearly in
+    the global Logmap coordinates (a chordal blend): there the rotation
+    vector flips sign where the heading crosses +-pi, and a pair that
+    straddles it blends toward the far side of the circle (metres off on a
+    closed lap). The two agree at w = 0 and w = 1, and to second order in
+    the pair's gap elsewhere. SURVEY.md describes the source's blend both
+    as "on the SE(3) manifold" and as an "SE(3) log-lerp" and quotes no
+    call, so the source may blend chordally too; the geodesic blend is
+    kept either way, since the chordal one fails on every closed lap."""
     dev = se3.between(pose_pred, pose_meas)
     trans_err = torch.linalg.vector_norm(dev.trans, dim=-1)
     rot_err = torch.linalg.vector_norm(so3.log(dev.rot), dim=-1)
     w_trans = torch.clamp(1.0 - trans_err / max_trans_deviation, min=0.0)
     w_rot = torch.clamp(1.0 - rot_err / max_rot_deviation, min=0.0)
     w = torch.minimum(w_trans, w_rot)
-    xi_pred = se3.logmap(pose_pred)
-    xi_meas = se3.logmap(pose_meas)
-    return se3.expmap(xi_pred + w[..., None] * (xi_meas - xi_pred)), w
+    return se3.interpolate(pose_pred, pose_meas, w), w
 
 
 def constant_velocity_predict(prev: Pose3, curr: Pose3) -> Pose3:

@@ -235,6 +235,14 @@ def finalize(
     )
 
 
+def to_float32(gmap: GaussianMap) -> GaussianMap:
+    """The map's floating fields in float32, the registration's dtype. A map
+    built from float64 points keeps float64 through the eigenvalue gates, so
+    float32 rounding does not reject the voxels whose points lie nearly on
+    a line (one scan ring on the ground)."""
+    return GaussianMap(*(a.to(torch.float32) if a.is_floating_point() else a for a in gmap))
+
+
 def origin_for(points, mask, resolution: float, margin_voxels: int = 64) -> torch.Tensor:
     """A map origin (lower corner, on the voxel lattice) with the masked
     points well inside the [0, GRID_DIM)^3 key range: ``margin_voxels``

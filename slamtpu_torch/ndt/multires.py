@@ -31,7 +31,8 @@ def build_pyramid(points, mask, origin, resolutions: Sequence[float], capacity: 
                   max_iterations: Sequence[int] = None) -> list:
     """The map pyramid of one target cloud, coarse first; each level's
     NewtonConfig has its resolution, its iteration budget, trans_eps 1e-3
-    and the defaults otherwise."""
+    and the defaults otherwise. The maps are built in the points' dtype and
+    registered against in float32."""
     resolutions = sorted(resolutions, reverse=True)
     iters = max_iterations or [10] * (len(resolutions) - 1) + [20]
     if len(iters) != len(resolutions):
@@ -41,7 +42,8 @@ def build_pyramid(points, mask, origin, resolutions: Sequence[float], capacity: 
     for res, it in zip(resolutions, iters):
         gmap = gaussian_map.build_map(points, mask, origin, res, capacity=capacity,
                                       min_points_per_voxel=min_points_per_voxel)
-        levels.append(MultiResLevel(build_regmap(gmap, grid_shape=grid_shape), grid_shape,
+        levels.append(MultiResLevel(build_regmap(gaussian_map.to_float32(gmap), grid_shape=grid_shape),
+                                    grid_shape,
                                     NewtonConfig(resolution=res, max_iterations=it, trans_eps=1e-3)))
     return levels
 

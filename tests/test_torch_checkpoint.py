@@ -18,6 +18,9 @@ TestLoSvnResume, TestOdomResume, TestLigoResume).
     directions, a file without the ``layout`` marker is read as this
     layout, another layout raises, and a generator state is restored only
     on a generator of its own device type.
+The reference's odom_ndt and ligo_tc build their target maps as the
+port's do, their statistics in float64 (``float64_target_maps`` of
+tests/test_torch_odom_ndt.py).
 """
 import dataclasses
 import functools
@@ -48,6 +51,7 @@ from tests.test_torch_lo_svn import _assert_pose_close
 from tests.test_torch_lo_svn import configs as lo_configs
 from tests.test_torch_odom_engines import configs as engine_configs
 from tests.test_torch_odom_ndt import configs as odom_configs
+from tests.test_torch_odom_ndt import reference_float64_target_maps  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 N_SWEEPS = 6

@@ -6,6 +6,12 @@ with numpy and fed to both packages in float64 (x64 is on in the tests, as
 the reference runs its window there; the port keeps its window in float64
 on every device). Tolerance: atol 1e-9 on every float64 output, the same
 formulas in another order; the trust-gain twins are held exactly.
+
+The deviation-gated blend is the exception: the port blends along the
+SE(3) geodesic, the JAX package linearly in the global Logmap
+coordinates, so the two are held to each other only where the weight is 0
+or 1, and the port's blend elsewhere to a float64 geodesic oracle written
+here (also across heading +-pi, where the two packages part).
 """
 import jax
 import jax.numpy as jnp
@@ -123,17 +129,70 @@ def test_logmap_derivative_and_adjoint(angle):
     np.testing.assert_allclose(lhs.trans.numpy(), rhs.trans.numpy(), atol=1e-12)
 
 
+def _so3_exp(w):
+    th = np.linalg.norm(w)
+    K = np.array([[0.0, -w[2], w[1]], [w[2], 0.0, -w[0]], [-w[1], w[0], 0.0]])
+    if th < 1e-12:
+        return np.eye(3) + K
+    return np.eye(3) + np.sin(th) / th * K + (1.0 - np.cos(th)) / th ** 2 * (K @ K)
+
+
+def _so3_left_jacobian(w):
+    th = np.linalg.norm(w)
+    K = np.array([[0.0, -w[2], w[1]], [w[2], 0.0, -w[0]], [-w[1], w[0], 0.0]])
+    if th < 1e-12:
+        return np.eye(3) + 0.5 * K
+    return np.eye(3) + (1.0 - np.cos(th)) / th ** 2 * K + (th - np.sin(th)) / th ** 3 * (K @ K)
+
+
+def _so3_log(R):
+    """Rotation vector of R for angles well below pi (the relative
+    rotations here)."""
+    th = np.arccos(np.clip(0.5 * (np.trace(R) - 1.0), -1.0, 1.0))
+    vee = 0.5 * np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return vee * (th / np.sin(th) if th > 1e-12 else 1.0)
+
+
+def _geodesic_blend(pred, meas, w):
+    """Float64 oracle: pred * Exp(w Log(pred^-1 meas)), the SE(3) geodesic
+    from pred (w = 0) to meas (w = 1), with tangent [omega, v]."""
+    Rp, tp = pred
+    Rm, tm = meas
+    dR, dt = Rp.T @ Rm, Rp.T @ (tm - tp)
+    om = _so3_log(dR)
+    v = np.linalg.solve(_so3_left_jacobian(om), dt)
+    return Rp @ _so3_exp(w * om), tp + Rp @ (_so3_left_jacobian(w * om) @ (w * v))
+
+
+def _rot_angle(Ra, Rb):
+    return float(np.linalg.norm(_so3_log(Ra.T @ Rb)))
+
+
 def test_deviation_gated_blend_and_prediction(window):
+    """The blend weight against the JAX package; the blended pose against
+    the JAX package where w is 0 or 1 (both blends return an end of the
+    pair there) and against the float64 geodesic oracle where 0 < w < 1:
+    the port blends along the geodesic, the JAX package linearly in the
+    global Logmap coordinates."""
     w = window
-    for k, (max_td, max_rd) in enumerate([(1.0, 0.1), (0.05, 0.1), (1.0, 0.005), (1e-4, 1e-4)]):
+    seen = set()
+    for k, (max_td, max_rd) in enumerate([(1.0, 0.1), (0.05, 0.1), (1.0, 0.005), (1e-4, 1e-4), (np.inf, np.inf)]):
         pred = (w["rot"][k], w["trans"][k])
         meas = (w["fp_rot"][k], w["fp_trans"][k])
         jb, jw = jrobust.deviation_gated_blend(jse3.Pose3(*map(jnp.asarray, pred)),
                                                jse3.Pose3(*map(jnp.asarray, meas)), max_td, max_rd)
         tb, tw = robust.deviation_gated_blend(Pose3(*map(T, pred)), Pose3(*map(T, meas)), max_td, max_rd)
         np.testing.assert_allclose(float(tw), float(jw), **F64)
-        np.testing.assert_allclose(tb.rot.numpy(), np.asarray(jb.rot), **F64)
-        np.testing.assert_allclose(tb.trans.numpy(), np.asarray(jb.trans), **F64)
+        if float(tw) in (0.0, 1.0):
+            seen.add("end")
+            np.testing.assert_allclose(tb.rot.numpy(), np.asarray(jb.rot), **F64)
+            np.testing.assert_allclose(tb.trans.numpy(), np.asarray(jb.trans), **F64)
+        else:
+            seen.add("inside")
+            ob_rot, ob_trans = _geodesic_blend(pred, meas, float(tw))
+            np.testing.assert_allclose(tb.rot.numpy(), ob_rot, **F64)
+            np.testing.assert_allclose(tb.trans.numpy(), ob_trans, **F64)
+    assert seen == {"end", "inside"}
     # batched over the window
     a = Pose3(T(w["rot"][:-1]), T(w["trans"][:-1]))
     b = Pose3(T(w["rot"][1:]), T(w["trans"][1:]))
@@ -146,6 +205,38 @@ def test_deviation_gated_blend_and_prediction(window):
     rel_then = se3.between(a, b)
     rel_next = se3.between(b, tp)
     np.testing.assert_allclose(rel_next.trans.numpy(), rel_then.trans.numpy(), atol=1e-12)
+
+
+def _yaw_pose(yaw, roll, trans):
+    c, s = np.cos(yaw), np.sin(yaw)
+    Rz = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    return Rz @ _so3_exp(np.array([roll, 0.0, 0.0])), np.asarray(trans, np.float64)
+
+
+@pytest.mark.parametrize("w", [0.0, 0.25, 0.5, 0.9, 0.998, 1.0])
+def test_blend_straddling_pi_stays_on_the_short_arc(w):
+    """A pair that straddles heading +-pi (yaw pi - 0.01 against -pi +
+    0.01, 0.02 rad apart the short way), as a closed lap meets every time
+    round: the blend turns a share w of the 0.02 rad toward the
+    measurement, and lands within 1e-9 m and 1e-9 rad of the float64
+    geodesic oracle. The rotation threshold sets w; the translation's is
+    wide enough not to bind."""
+    pred = _yaw_pose(np.pi - 0.01, 0.003, [41.7, -23.2, 1.5])
+    meas = _yaw_pose(-np.pi + 0.01, 0.003, [41.45, -23.15, 1.52])
+    gap = _rot_angle(pred[0], meas[0])
+    assert gap < 0.021  # the short way round
+    max_rd = np.inf if w == 1.0 else gap / (1.0 - w)
+    tb, tw = robust.deviation_gated_blend(Pose3(*map(T, pred)), Pose3(*map(T, meas)), 1e3, max_rd)
+    assert float(tw) == pytest.approx(w, abs=1e-3)
+    Rb, tb_ = tb.rot.numpy(), tb.trans.numpy()
+    ob_rot, ob_trans = _geodesic_blend(pred, meas, float(tw))
+    assert _rot_angle(Rb, ob_rot) < 1e-9
+    np.testing.assert_allclose(tb_, ob_trans, atol=1e-9, rtol=0.0)
+    # on the arc between the two: the turns from pred and to meas add up
+    # to the gap, split w : 1 - w
+    to_b, from_b = _rot_angle(pred[0], Rb), _rot_angle(Rb, meas[0])
+    assert abs(to_b + from_b - gap) < 1e-9
+    assert abs(to_b - float(tw) * gap) < 1e-9
 
 
 def test_trust_gain_twins():

@@ -29,6 +29,9 @@ pair kernel's plain version with ``fused_inner_iters=1`` (and
 (d) The sorted-key path (``use_regmap=False``): ``run_replay`` of both
     packages at the bounds of (b), in DIRECT7, DIRECT1 and KDTREE (which
     run DIRECT7 in both packages there).
+The reference builds its target maps as the port does (through odom_ndt's
+``_register_step`` in both packages), their statistics in float64
+(``float64_target_maps`` of tests/test_torch_odom_ndt.py).
 """
 import functools
 
@@ -49,6 +52,7 @@ from slamtpu_torch.runtime import config as tconfig
 from tests.simulator import simulate_replay, small_meta
 from tests.test_torch_lo_svn import _assert_pose_close
 from tests.test_torch_odom_ndt import _ate
+from tests.test_torch_odom_ndt import reference_float64_target_maps  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 N_SWEEPS = 6

@@ -12,6 +12,8 @@ injected). SVNNDT also runs in the KDTREE search mode. The anisotropic engine ru
 covariances (the default) and with the voxel ones. The three engines also
 run on the sorted-key path (``use_regmap=False``): SVNNDT on ``svn_align``,
 anisotropic GICP and the pyramid on the fixed (256, 256, 64) grid.
+The reference builds its target maps as the port does, their statistics
+in float64 (``float64_target_maps`` of tests/test_torch_odom_ndt.py).
 """
 import dataclasses
 
@@ -29,6 +31,7 @@ from tests.test_torch_lo_svn import _assert_pose_close
 from tests.test_torch_odom_ndt import WINDOW, _ate
 from tests.test_torch_odom_ndt import configs as odom_configs
 from tests.test_torch_odom_ndt import replay  # noqa: F401  (the shared 5-sweep replay)
+from tests.test_torch_odom_ndt import reference_float64_target_maps  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 ENGINES = {

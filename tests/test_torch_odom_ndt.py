@@ -46,7 +46,16 @@ its fused driver over the pair kernels' plain versions with
     (b)'s 5e-4); the refined poses within 1e-3 m / 1e-3 rad of the
     reference's (they inherit that gap, and the closures' relative poses
     differ by the rounding of two Newton runs).
+
+The reference builds its odom target maps in float32; the port computes
+their voxel statistics in float64 from the same float32 cloud
+(``todom.MAP_DTYPE``: float32 rounding rejects at random the voxels whose
+points lie nearly on a line). So every reference run here builds them as
+the port does (``float64_target_maps``, applied to each test of this
+module and of tests/test_torch_odom_engines.py): the same statistics in
+float64 under the tests' x64, handed to the registration in float32.
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -58,6 +67,8 @@ import torch
 from slamtpu.apps import odom_ndt as jodom
 from slamtpu.ins.imu_config import ImuConfig as JImu
 from slamtpu.lidar.ouster import LidarParams as JLidar
+from slamtpu.mapping import gaussian_map as jgm
+from slamtpu.ndt import multires as jmultires
 from slamtpu.runtime import config as jconfig
 from slamtpu_torch import interop
 from slamtpu_torch.apps import odom_ndt as todom
@@ -81,6 +92,44 @@ REGISTER = dict(
     ndt_resolution=np.float32(1.0), ndt_max_iterations=30, map_capacity=1 << 14,
     min_points_per_voxel=6, reg_grid_shape=(128, 128, 32), fused_inner_iters=1,
 )
+
+
+class Float64Statistics:
+    """The reference's ``gaussian_map`` as its odom app and its pyramid see
+    it inside ``float64_target_maps``: ``build_map`` computes the voxel
+    statistics of the float32 target cloud in float64 and hands the map
+    back in float32, as the port's app (``gaussian_map.to_float32``)."""
+
+    def __getattr__(self, name):
+        return getattr(jgm, name)
+
+    @staticmethod
+    def build_map(points, *args, **kwargs):
+        gmap = jgm.build_map(points.astype(jnp.float64), *args, **kwargs)
+        return jax.tree.map(lambda a: a.astype(jnp.float32) if jnp.issubdtype(a.dtype, jnp.floating) else a,
+                            gmap)
+
+
+@contextlib.contextmanager
+def float64_target_maps():
+    """Inside, the reference's odom app and pyramid build their target maps
+    as the port's app does (``Float64Statistics``). Jitted functions are
+    traced afresh on entry and on exit, so no trace crosses the boundary."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jodom, "gaussian_map", Float64Statistics())
+    mp.setattr(jmultires, "gaussian_map", Float64Statistics())
+    jax.clear_caches()
+    try:
+        yield
+    finally:
+        mp.undo()
+        jax.clear_caches()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_float64_target_maps():
+    with float64_target_maps():
+        yield
 
 
 def configs(method):
@@ -176,7 +225,7 @@ def test_run_replay_matches_reference(replay, method):
     assert all(abs(r.ndt_iterations - q.ndt_iterations) <= 1 for r, q in zip(recs, jrecs))
     assert all(np.isfinite(r.lidar_sigma).all() and np.isfinite(r.optimized_sigma).all() for r in recs)
     assert all(e.covariance is not None and np.isfinite(e.covariance).all() for e in tt[1:])
-    assert set(tapp.device_timer.summary()) >= {"project", "deskew", "map_build", "newton",
+    assert set(tapp.device_timer.summary()) >= {"project", "deskew", "map_build", "newton", "blend",
                                                  "covariance", "smoother"}
 
 
@@ -223,7 +272,6 @@ def test_gicp_kdtree_step_matches_reference_fused(replay):
     fused Newton (interpret mode), from the inputs of the port app's last
     registration."""
     from slamtpu.core import se3 as jse3
-    from slamtpu.mapping import gaussian_map as jgm
     from slamtpu.ndt import build_regmap as jbuild_regmap
     from slamtpu.ndt import gicp_map as jgicp_map
     from slamtpu.ndt.pallas_math import gicp_align_fused
@@ -246,9 +294,9 @@ def test_gicp_kdtree_step_matches_reference_fused(replay):
         todom._register_step = real
     (target, tmask, pts, mask, guess, origin, cfg, capacity, min_points, grid), kwargs, res = calls[-1]
     assert kwargs["method"] == "GICP" and cfg.kd_radius == 1.0 and kwargs["inner_iters"] == 1
-    gmap = jgm.build_map(jnp.asarray(target.numpy()), jnp.asarray(tmask.numpy()),
-                         jnp.asarray(origin.numpy()), cfg.resolution, capacity=capacity,
-                         min_points_per_voxel=min_points)
+    gmap = Float64Statistics.build_map(jnp.asarray(target.numpy()), jnp.asarray(tmask.numpy()),
+                                       jnp.asarray(origin.numpy()), cfg.resolution, capacity=capacity,
+                                       min_points_per_voxel=min_points)
     jreg = jbuild_regmap(jgicp_map(gmap), grid_shape=grid)
     jnewton_cfg = jodom.OdomNdtApp(jcfg, window=WINDOW).newton_cfg
     assert jnewton_cfg.kd_radius == cfg.kd_radius
@@ -422,3 +470,34 @@ def test_loop_closure_without_closures_leaves_the_trajectory(replay):
     assert closures == [] and all(np.array_equal(p.trans, b) for p, b in zip(poses, before))
     with pytest.raises(RuntimeError, match="loop_closure=True"):
         todom.OdomNdtApp(tcfg, "cpu").refine_loop_closures()
+
+
+def test_float64_target_map_keeps_line_voxels():
+    """The app computes its target map's statistics in float64 from the
+    float32 cloud: 300 voxels of 2 m, each crossed by 12 points on a line
+    with 0.1 mm of noise (one scan ring on the ground). Their covariances'
+    two small eigenvalues lie at float32's rounding of the largest, so a
+    float32 build (the JAX package's) rejects most of them at random by a
+    negative eigenvalue, where a float64 build keeps every one; both come
+    back in float32, the registration's dtype."""
+    g = torch.Generator().manual_seed(7)
+    V = 300
+    f64 = torch.float64
+    centers = torch.stack([torch.arange(V, dtype=f64) * 2.0 + 1.0, torch.full((V,), 31.0, dtype=f64),
+                           torch.full((V,), 3.0, dtype=f64)], 1)
+    t = torch.linspace(-0.9, 0.9, 12, dtype=f64)
+    d = torch.nn.functional.normalize(
+        torch.randn(V, 3, generator=g, dtype=f64) * torch.tensor([1.0, 1.0, 0.05], dtype=f64), dim=1)
+    pts = (centers[:, None] + t[None, :, None] * d[:, None] + 1e-4 * torch.randn(V, 12, 3, generator=g, dtype=f64))
+    pts = pts.reshape(-1, 3).to(torch.float32)  # the app's target cloud is float32
+    mask = torch.ones(pts.shape[0], dtype=torch.bool)
+    maps = {dt: gaussian_map.to_float32(gaussian_map.build_map(pts.to(dt), mask, torch.zeros(3), 2.0,
+                                                               capacity=1024, min_points_per_voxel=6))
+            for dt in (torch.float32, todom.MAP_DTYPE)}
+    assert todom.MAP_DTYPE == torch.float64
+    assert all(m.mean.dtype == m.icov.dtype == torch.float32 for m in maps.values())
+    assert int(maps[torch.float64].num_valid()) == V
+    assert int(maps[torch.float32].num_valid()) < V // 2
+    jmap = jgm.build_map(jnp.asarray(pts.numpy()), jnp.asarray(mask.numpy()),
+                         jnp.zeros(3, jnp.float32), 2.0, capacity=1024, min_points_per_voxel=6)
+    assert int(np.sum(np.asarray(jmap.valid))) < V // 2
