@@ -57,6 +57,13 @@ under x64, as its tests run, and in float32 on the TPU.) The window fill
 count ``n`` is a host integer: it advances by one per keyframe up to the
 window size, so no device value decides it.
 
+On a CUDA device the full window's solve (the ring's slide, the Gauss-Newton
+iterations and the newest state's marginal covariance: the ``smoother``
+span) is a CUDA graph replay (``PoseWindowGraph``): the first full-window
+keyframe runs eagerly, the second captures, the rest copy their inputs into
+the graph's buffers and replay it under a ``smoother_graph_replay`` span.
+The window's fill-up and the CPU stay eager.
+
 Host syncs per keyframe in this module: one per Newton outer iteration
 (the loop's exit test; one per step for ``newton_align``; none for
 SVNNDT), one in ``torch.linalg.eigh`` (the
@@ -71,6 +78,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..core import se3
 from ..core.se3 import Pose3
@@ -84,7 +92,7 @@ from ..ndt.gicp import gicp_map, gicp_map_aniso, sweep_point_covariances
 from ..ndt.multires import build_pyramid, multires_align
 from ..ndt.newton import NewtonConfig, NewtonResult, newton_align
 from ..ndt.regmap import RegMap, build_regmap, build_regmap_kdtree
-from ..ndt.svn import SvnConfig, SvnResult, svn_align, svn_align_reg
+from ..ndt.svn import SvnConfig, SvnResult, capture_graph, svn_align, svn_align_reg
 from ..runtime import checkpoint
 from ..runtime.config import PipelineConfig
 from ..runtime.device_timer import DeviceStageTimer
@@ -222,6 +230,93 @@ def _svn_as_newton(res: SvnResult, dtype) -> NewtonResult:
                         torch.zeros((), dtype=torch.int32, device=cov.device))
 
 
+# the window ring in the carry: poses, INS priors (rotation, translation,
+# sigmas) and between factors (rotation, translation, sqrt-information)
+RING = ("win_rot", "win_trans", "fp_rot", "fp_trans", "fp_sig", "fb_rot", "fb_trans", "fb_si")
+
+
+def _window_solve(ring, new, idx: int, full: bool, iterations: int):
+    """Slide the window ring (roll left when ``full``, write ``new`` at
+    ``idx``) and solve it: (the slid ring with the solved poses in place of
+    the window's, the newest state's (6, 6) marginal covariance)."""
+
+    def roll_in(a, new_val):
+        rolled = torch.roll(a, -1, dims=0) if full else a.clone()
+        rolled[idx] = new_val.to(a.dtype)
+        return rolled
+
+    win_rot, win_trans, fp_rot, fp_trans, fp_sig, fb_rot, fb_trans, fb_si = map(roll_in, ring, new)
+    ks = torch.arange(win_trans.shape[0], device=win_trans.device)
+    active = ks <= idx
+    b_active = (ks >= 1) & (ks <= idx)
+    sm = optimize_pose_window(
+        win_rot, win_trans, active, fp_rot, fp_trans, torch.diag_embed(1.0 / fp_sig),
+        fb_rot[1:], fb_trans[1:], fb_si[1:], b_active[1:], iterations=iterations,
+    )
+    cov_opt = pose_marginal_covariance(sm.hessian, idx)
+    return (sm.rot, sm.trans, fp_rot, fp_trans, fp_sig, fb_rot, fb_trans, fb_si), cov_opt
+
+
+def replays(device: torch.device, full: bool) -> bool:
+    """Whether ``PoseWindowGraph`` replays a captured graph: the window on a
+    CUDA device and full (every shape and index fixed)."""
+    return device.type == "cuda" and full
+
+
+class _CapturedWindow:
+    """One captured window solve: the static inputs the graph reads, the
+    graph and its static outputs."""
+
+    def __init__(self, ring, new, idx: int, iterations: int):
+        self.ring = tuple(t.clone() for t in ring)
+        self.new = tuple(t.clone() for t in new)
+        self.graph, self.out, _ = capture_graph(
+            lambda: _window_solve(self.ring, self.new, idx, True, iterations), ring[0].device)
+
+    def load(self, ring, new):
+        for buf, t in zip(self.ring + self.new, ring + new):
+            buf.copy_(t)
+
+    def replay(self):
+        """Run the graph on the current stream; the static outputs' values
+        hold until the next replay."""
+        with record_function("smoother_graph_replay"):
+            self.graph.replay()
+
+
+class PoseWindowGraph:
+    """``_window_solve`` with the full window's solve replayed as one CUDA
+    graph (``replays`` says when). Each key (W, iterations, dtype, device)
+    runs eagerly once, so that the cuBLAS and cuSOLVER handles and
+    workspaces exist, then captures once on static buffers (the carry's
+    ring and the keyframe's new entries); later calls copy their inputs in
+    and replay. The graph calls ``optimize_pose_window`` as this module
+    names it when it is captured. Each replay's outputs are copied out, so
+    a carry or result kept in flight shares no memory with the next."""
+
+    def __init__(self):
+        self._graphs = {}  # key -> None (ran eagerly once) or _CapturedWindow
+        self.captures = 0
+
+    def __call__(self, ring, new, idx: int, full: bool, iterations: int):
+        win_trans = ring[1]
+        if not replays(win_trans.device, full):
+            return _window_solve(ring, new, idx, full, iterations)
+        key = (win_trans.shape[0], iterations, win_trans.dtype, win_trans.device)
+        if key not in self._graphs:
+            self._graphs[key] = None
+            return _window_solve(ring, new, idx, full, iterations)
+        run = self._graphs[key]
+        if run is None:
+            run = self._graphs[key] = _CapturedWindow(ring, new, idx, iterations)
+            self.captures += 1
+        else:
+            run.load(ring, new)
+        run.replay()
+        out_ring, cov_opt = run.out
+        return tuple(t.clone() for t in out_ring), cov_opt.clone()
+
+
 def _odom_fused_step(
     carry: dict,  # window ring + previous cloud(s); see OdomNdtApp._start
     new_points,  # (N, 3) body frame
@@ -246,6 +341,7 @@ def _odom_fused_step(
     svn_cfg: SvnConfig = None,  # SVNNDT
     init_noise=None,  # (K, 6) particle draws (SVNNDT)
     scan_grid: tuple = None,  # see _register_step
+    window_graph=None,  # a PoseWindowGraph (else the window solve runs eagerly)
 ):
     """One complete odometry keyframe: (new carry, (100,) result vector
     [pose rot(9), trans(3), marginal cov(36), lidar cov(36), rel rot(9),
@@ -313,33 +409,15 @@ def _odom_fused_step(
         rel = se3.between(prev, blended)
 
     with _span(timer, "smoother"):
-        # slide the window ring: roll left when full, write at idx
         full = n >= W
         idx = min(n, W - 1)
-
-        def roll_in(a, new_val):
-            rolled = torch.roll(a, -1, dims=0) if full else a.clone()
-            rolled[idx] = new_val.to(a.dtype)
-            return rolled
-
-        win_rot = roll_in(win_rot, blended.rot)
-        win_trans = roll_in(win_trans, blended.trans)
-        fp_rot = roll_in(carry["fp_rot"], ins_pose.rot)
-        fp_trans = roll_in(carry["fp_trans"], ins_pose.trans)
-        fp_sig = roll_in(carry["fp_sig"], scaled_sigma)
-        # edge slot e holds the between factor (e-1) -> e; idx >= 1 here
-        fb_rot = roll_in(carry["fb_rot"], rel.rot)
-        fb_trans = roll_in(carry["fb_trans"], rel.trans)
-        fb_si = roll_in(carry["fb_si"], fb_si_new)
-
-        ks = torch.arange(W, device=flat.device)
-        active = ks <= idx
-        b_active = (ks >= 1) & (ks <= idx)
-        sm = optimize_pose_window(
-            win_rot, win_trans, active, fp_rot, fp_trans, torch.diag_embed(1.0 / fp_sig),
-            fb_rot[1:], fb_trans[1:], fb_si[1:], b_active[1:], iterations=smoother_iters,
-        )
-        cov_opt = pose_marginal_covariance(sm.hessian, idx)
+        # the ring's new entries, in RING's order; edge slot e holds the
+        # between factor (e-1) -> e, and idx >= 1 here
+        new = (blended.rot, blended.trans, ins_pose.rot, ins_pose.trans, scaled_sigma, rel.rot, rel.trans,
+               fb_si_new)
+        ring = tuple(carry[k] for k in RING)
+        ring, cov_opt = (window_graph or _window_solve)(ring, new, idx, full, smoother_iters)
+        sm_rot, sm_trans = ring[0], ring[1]
 
     if M == 1:
         prev_points, prev_mask = new_points[None], new_mask[None]
@@ -348,13 +426,9 @@ def _odom_fused_step(
         prev_points[M - 1] = new_points
         prev_mask = torch.roll(carry["prev_mask"], -1, dims=0)
         prev_mask[M - 1] = new_mask
-    new_carry = dict(
-        win_rot=sm.rot, win_trans=sm.trans, fp_rot=fp_rot, fp_trans=fp_trans, fp_sig=fp_sig,
-        fb_rot=fb_rot, fb_trans=fb_trans, fb_si=fb_si, n=min(n + 1, W),
-        prev_points=prev_points, prev_mask=prev_mask,
-    )
+    new_carry = dict(zip(RING, ring), n=min(n + 1, W), prev_points=prev_points, prev_mask=prev_mask)
     out = torch.cat([
-        sm.rot[idx].reshape(-1), sm.trans[idx], cov_opt.reshape(-1), lidar_cov.reshape(-1),
+        sm_rot[idx].reshape(-1), sm_trans[idx], cov_opt.reshape(-1), lidar_cov.reshape(-1),
         rel.rot.reshape(-1), rel.trans,
         torch.stack([res.score.to(cd), res.iterations.to(cd), res.converged.to(cd), w.to(cd)]),
     ])
@@ -433,6 +507,7 @@ class OdomNdtApp:
         self._origin = None  # numpy (3,) float64
         self._trust = robust.trust_gain_init_np()
         self._carry = None  # device window state; None until the first keyframe
+        self._window_graph = PoseWindowGraph()  # the full window's solve, replayed as a CUDA graph on a card
         # (rot, trans) numpy float64 INS pose of the previous keyframe: the
         # source of the INS-relative registration seed
         self._prev_ins = None
@@ -528,6 +603,7 @@ class OdomNdtApp:
                 smoother_iters=self.smoother_iters, tgt_window=self.tgt_window,
                 tgt_exclude=self.tgt_exclude, timer=self.device_timer, svn_cfg=self.svn_cfg,
                 init_noise=self._particle_noise(), scan_grid=self._scan_grid,
+                window_graph=self._window_graph,
             )
         self._n_keyframes += 1
         # the detector keeps its own copy of the cloud

@@ -350,11 +350,12 @@ def replays(points: torch.Tensor, ranks=_OneDevice) -> bool:
     return points.is_cuda and ranks is _OneDevice
 
 
-def _capture(fn, device):
+def capture_graph(fn, device):
     """(graph, outputs, pair-kernel launches of one replay) of ``fn``
-    captured as one CUDA graph. ``fn`` runs once on the capture stream
-    first, outside the capture, so that what that stream needs (the pair
-    kernel's tickets, the cuBLAS workspace) exists before the capture."""
+    captured as one CUDA graph (here and in ``odom_ndt.PoseWindowGraph``).
+    ``fn`` runs once on the capture stream first, outside the capture, so
+    that what that stream needs (the pair kernel's tickets, the cuBLAS and
+    cuSOLVER workspaces) exists before the capture."""
     with torch.cuda.device(device):
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
@@ -394,7 +395,7 @@ class _Captured:
                                                         grid_shape, self.src_cov)
             return _svn_flow(make_obj, self.points.dtype, self.prior, self.noise, cfg, polish_make_obj)
 
-        self.graph, self.out, self.launches = _capture(flow, points.device)
+        self.graph, self.out, self.launches = capture_graph(flow, points.device)
 
     def load(self, points, mask, regmap, prior: Pose3, src_cov, init_noise):
         """Copy a keyframe's inputs into the static buffers; the RegMap's
