@@ -59,10 +59,11 @@ window size, so no device value decides it.
 
 On a CUDA device the full window's solve (the ring's slide, the Gauss-Newton
 iterations and the newest state's marginal covariance: the ``smoother``
-span) is a CUDA graph replay (``PoseWindowGraph``): the first full-window
-keyframe runs eagerly, the second captures, the rest copy their inputs into
-the graph's buffers and replay it under a ``smoother_graph_replay`` span.
-The window's fill-up and the CPU stay eager.
+span) is a CUDA graph replay (``PoseWindowGraph``, a client of
+``core.cuda_graph``): the first full-window keyframe runs eagerly, the
+second captures, the rest copy their inputs into the graph's buffers and
+replay it under a ``smoother_graph_replay`` span. The window's fill-up and
+the CPU stay eager.
 
 Host syncs per keyframe in this module: one per Newton outer iteration
 (the loop's exit test; one per step for ``newton_align``; none for
@@ -78,9 +79,8 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from ..core import se3
+from ..core import cuda_graph, se3
 from ..core.se3 import Pose3
 from ..fusion import robust
 from ..fusion.graph import sqrt_info_from_cov
@@ -92,7 +92,7 @@ from ..ndt.gicp import gicp_map, gicp_map_aniso, sweep_point_covariances
 from ..ndt.multires import build_pyramid, multires_align
 from ..ndt.newton import NewtonConfig, NewtonResult, newton_align
 from ..ndt.regmap import RegMap, build_regmap, build_regmap_kdtree
-from ..ndt.svn import SvnConfig, SvnResult, capture_graph, svn_align, svn_align_reg
+from ..ndt.svn import SvnConfig, SvnResult, svn_align, svn_align_reg
 from ..runtime import checkpoint
 from ..runtime.config import PipelineConfig
 from ..runtime.device_timer import DeviceStageTimer
@@ -257,64 +257,23 @@ def _window_solve(ring, new, idx: int, full: bool, iterations: int):
     return (sm.rot, sm.trans, fp_rot, fp_trans, fp_sig, fb_rot, fb_trans, fb_si), cov_opt
 
 
-def replays(device: torch.device, full: bool) -> bool:
-    """Whether ``PoseWindowGraph`` replays a captured graph: the window on a
-    CUDA device and full (every shape and index fixed)."""
-    return device.type == "cuda" and full
-
-
-class _CapturedWindow:
-    """One captured window solve: the static inputs the graph reads, the
-    graph and its static outputs."""
-
-    def __init__(self, ring, new, idx: int, iterations: int):
-        self.ring = tuple(t.clone() for t in ring)
-        self.new = tuple(t.clone() for t in new)
-        self.graph, self.out, _ = capture_graph(
-            lambda: _window_solve(self.ring, self.new, idx, True, iterations), ring[0].device)
-
-    def load(self, ring, new):
-        for buf, t in zip(self.ring + self.new, ring + new):
-            buf.copy_(t)
-
-    def replay(self):
-        """Run the graph on the current stream; the static outputs' values
-        hold until the next replay."""
-        with record_function("smoother_graph_replay"):
-            self.graph.replay()
-
-
-class PoseWindowGraph:
+class PoseWindowGraph(cuda_graph.GraphRunner):
     """``_window_solve`` with the full window's solve replayed as one CUDA
-    graph (``replays`` says when). Each key (W, iterations, dtype, device)
-    runs eagerly once, so that the cuBLAS and cuSOLVER handles and
-    workspaces exist, then captures once on static buffers (the carry's
-    ring and the keyframe's new entries); later calls copy their inputs in
-    and replay. The graph calls ``optimize_pose_window`` as this module
-    names it when it is captured. Each replay's outputs are copied out, so
-    a carry or result kept in flight shares no memory with the next."""
+    graph on a CUDA device (``core.cuda_graph``); a window still filling
+    changes its indices, so it stays eager. Keyed by (W, iterations, dtype,
+    device); the buffers are the carry's ring and the keyframe's new
+    entries. The graph calls ``optimize_pose_window`` as this module names
+    it when it is captured."""
 
     def __init__(self):
-        self._graphs = {}  # key -> None (ran eagerly once) or _CapturedWindow
-        self.captures = 0
+        super().__init__(_window_solve, "smoother_graph_replay")
 
     def __call__(self, ring, new, idx: int, full: bool, iterations: int):
         win_trans = ring[1]
-        if not replays(win_trans.device, full):
+        if not (full and cuda_graph.replays(win_trans.device)):
             return _window_solve(ring, new, idx, full, iterations)
         key = (win_trans.shape[0], iterations, win_trans.dtype, win_trans.device)
-        if key not in self._graphs:
-            self._graphs[key] = None
-            return _window_solve(ring, new, idx, full, iterations)
-        run = self._graphs[key]
-        if run is None:
-            run = self._graphs[key] = _CapturedWindow(ring, new, idx, iterations)
-            self.captures += 1
-        else:
-            run.load(ring, new)
-        run.replay()
-        out_ring, cov_opt = run.out
-        return tuple(t.clone() for t in out_ring), cov_opt.clone()
+        return self.run(key, win_trans.device, (ring, new, idx, full, iterations))
 
 
 def _odom_fused_step(

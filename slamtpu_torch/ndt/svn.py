@@ -32,15 +32,9 @@ the reference's ``jax.named_scope``: ``svn_gather``,
 ``svn_posterior``, so a profiler trace splits a keyframe by stage.
 
 ``SvnGraph`` replays ``svn_align_reg``'s flow and polish as one CUDA graph
-where the points are on a CUDA device and one rank holds every particle
-(``replays``); the CPU, ``dist.sharded``'s ranks, ``svn_align`` and a bare
-``svn_align_reg`` call stay eager. Per configuration it runs eagerly once,
-then captures once on static buffers (points, mask, prior, draws, source
-covariances, the RegMap's device tensors); later calls copy their inputs
-in, the RegMap's tables only after a rebuild, and replay it under a
-``svn_graph_replay`` span. The posterior stays eager (``eigh`` reads the
-device) on copies of the graph's outputs. A replay runs the captured
-kernels, so the stage spans above appear only in the eager runs.
+(``core.cuda_graph``, span ``svn_graph_replay``) where the points are on a
+CUDA device; the CPU, ``dist.sharded``'s ranks, ``svn_align`` and a bare
+``svn_align_reg`` call stay eager, and so do the stage spans above.
 """
 from __future__ import annotations
 
@@ -49,7 +43,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch.profiler import record_function
 
-from ..core import linalg, se3
+from ..core import cuda_graph, linalg, se3
 from ..core.const import constant
 from ..core.se3 import Pose3
 from ..mapping import voxel
@@ -57,7 +51,7 @@ from . import fused_math, objective
 from .constants import gauss_constants
 from .fused_math import gate_params, rows_objective
 from .objective import NdtObjective
-from .regmap import RegMap, grid_rows
+from .regmap import grid_rows
 
 # particle init sigmas around the prior, tangent order [omega, v]
 INIT_SIGMAS = (0.01, 0.01, 0.02, 0.05, 0.05, 0.05)
@@ -343,122 +337,36 @@ def _svn_posterior(mean_pose: Pose3, particles: Pose3, iters, converged, score, 
     return SvnResult(mean_pose, cov, iters, converged, ranks.gather(particles), score)
 
 
-def replays(points: torch.Tensor, ranks=_OneDevice) -> bool:
-    """Whether ``SvnGraph`` replays a captured graph for these inputs:
-    points on a CUDA device and one rank (the collectives of
-    ``dist.sharded``'s process group stay eager)."""
-    return points.is_cuda and ranks is _OneDevice
+def _reg_flow(points, mask, prior: Pose3, init_noise, src_cov, cfg: SvnConfig, grid_shape: tuple,
+              regmap):
+    """``svn_align_reg``'s flow and polish, the part ``SvnGraph`` captures."""
+    make_obj, polish_make_obj = _reg_objectives(points, mask, regmap, cfg, grid_shape, src_cov)
+    return _svn_flow(make_obj, points.dtype, prior, init_noise, cfg, polish_make_obj)
 
 
-def capture_graph(fn, device):
-    """(graph, outputs, pair-kernel launches of one replay) of ``fn``
-    captured as one CUDA graph (here and in ``odom_ndt.PoseWindowGraph``).
-    ``fn`` runs once on the capture stream first, outside the capture, so
-    that what that stream needs (the pair kernel's tickets, the cuBLAS and
-    cuSOLVER workspaces) exists before the capture."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            fn()
-        torch.cuda.current_stream().wait_stream(stream)
-        before = dict(fused_math.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
-            out = fn()
-    # the capture ran no kernel: its launches count at each replay
-    launches = {k: fused_math.LAUNCHES[k] - before[k] for k in before}
-    fused_math.LAUNCHES.update(before)
-    return graph, out, launches
-
-
-def _on_device(t) -> bool:
-    return isinstance(t, torch.Tensor) and t.is_cuda
-
-
-class _Captured:
-    """One captured flow and polish: the static inputs the graph reads, the
-    graph and its static outputs."""
-
-    def __init__(self, points, mask, regmap, prior: Pose3, src_cov, init_noise, cfg: SvnConfig,
-                 grid_shape: tuple):
-        self.points, self.mask = points.clone(), mask.clone()
-        self.prior = Pose3(prior.rot.clone(), prior.trans.clone())
-        self.noise = init_noise.to(points.dtype).clone()
-        self.src_cov = None if src_cov is None else src_cov.clone()
-        # the RegMap's device tensors (its resolution, on the CPU, is in the key)
-        self.regmap = RegMap(*(t.clone() if _on_device(t) else t for t in regmap))
-        self.source = regmap  # the RegMap whose tables the buffers hold
-
-        def flow():
-            make_obj, polish_make_obj = _reg_objectives(self.points, self.mask, self.regmap, cfg,
-                                                        grid_shape, self.src_cov)
-            return _svn_flow(make_obj, self.points.dtype, self.prior, self.noise, cfg, polish_make_obj)
-
-        self.graph, self.out, self.launches = capture_graph(flow, points.device)
-
-    def load(self, points, mask, regmap, prior: Pose3, src_cov, init_noise):
-        """Copy a keyframe's inputs into the static buffers; the RegMap's
-        tables only when it is another RegMap than the last (a rebuild)."""
-        self.points.copy_(points)
-        self.mask.copy_(mask)
-        self.prior.rot.copy_(prior.rot)
-        self.prior.trans.copy_(prior.trans)
-        self.noise.copy_(init_noise)
-        if self.src_cov is not None:
-            self.src_cov.copy_(src_cov)
-        if regmap is not self.source:
-            for buf, t in zip(self.regmap, regmap):
-                if _on_device(buf):
-                    buf.copy_(t)
-            self.source = regmap
-
-    def replay(self):
-        """Run the graph on the current stream; the static outputs' values
-        hold until the next replay."""
-        with record_function("svn_graph_replay"):
-            self.graph.replay()
-        for k, n in self.launches.items():
-            fused_math.LAUNCHES[k] += n
-
-
-class SvnGraph:
+class SvnGraph(cuda_graph.GraphRunner):
     """``svn_align_reg`` with the flow and polish replayed as one CUDA graph
-    (the module's docstring says when). Each configuration, keyed by
-    ``SvnConfig``, N, ``grid_shape``, dtype, device, the RegMap's row
-    count, resolution and aux table, and whether source covariances come,
-    runs eagerly once, so that the kernel library, the cuBLAS and cuSOLVER
-    handles and the constants exist before its one capture. Each replay's
-    outputs are copied out, so results kept in flight share no memory."""
+    on a CUDA device, keyed by ``SvnConfig``, N, ``grid_shape``, dtype,
+    device, the RegMap's row count, resolution and aux table, and whether
+    source covariances come. The RegMap's tables are copied in only after a
+    rebuild. The posterior stays eager (``eigh`` reads the device) on
+    copies of the graph's outputs."""
 
     def __init__(self):
-        self._graphs = {}  # key -> None (ran eagerly once) or _Captured
-        self.captures = 0
+        super().__init__(_reg_flow, "svn_graph_replay", fused_math.LAUNCHES)
 
     def __call__(self, points, mask, regmap, prior: Pose3, cfg: SvnConfig = SvnConfig(),
                  grid_shape: tuple = (256, 256, 64), src_cov: Optional[torch.Tensor] = None,
                  init_noise: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None, _ranks=_OneDevice) -> SvnResult:
-        if not replays(points, _ranks):
+                 generator: Optional[torch.Generator] = None) -> SvnResult:
+        if not cuda_graph.replays(points.device):
             return svn_align_reg(points, mask, regmap, prior, cfg, grid_shape, src_cov, init_noise,
-                                 generator, _ranks)
+                                 generator)
         if init_noise is None:
             init_noise = _draws(cfg, points, generator)
         key = (cfg, points.shape[0], tuple(grid_shape), points.dtype, points.device,
                regmap.packed.shape[0], float(regmap.resolution), regmap.packed_aux is not None,
                src_cov is not None)
-        if key not in self._graphs:
-            self._graphs[key] = None
-            return svn_align_reg(points, mask, regmap, prior, cfg, grid_shape, src_cov, init_noise)
-        run = self._graphs[key]
-        if run is None:
-            run = self._graphs[key] = _Captured(points, mask, regmap, prior, src_cov, init_noise, cfg,
-                                                grid_shape)
-            self.captures += 1
-        else:
-            run.load(points, mask, regmap, prior, src_cov, init_noise)
-        run.replay()
-        mean_pose, particles, iters, converged, score = run.out
-        return _svn_posterior(Pose3(mean_pose.rot.clone(), mean_pose.trans.clone()),
-                              Pose3(particles.rot.clone(), particles.trans.clone()),
-                              iters.clone(), converged.clone(), score.clone(), points.dtype, cfg)
+        flow = self.run(key, points.device, (points, mask, prior, init_noise.to(points.dtype), src_cov,
+                                             cfg, tuple(grid_shape)), sticky=(regmap,))
+        return _svn_posterior(*flow, points.dtype, cfg)

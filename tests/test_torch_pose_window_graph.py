@@ -4,14 +4,17 @@ replayed as one CUDA graph.
 
 On the CPU (these count in the default lane):
 
-- the dispatch rule: only a full window on a CUDA device replays, and the
-  runner keys its graphs by (W, iterations, dtype, device);
+- the dispatch rule: ``core.cuda_graph.replays`` (a CUDA device) and, for
+  the window, a full one; the runner keys its graphs by (W, iterations,
+  dtype, device);
 - the CPU runner, over the window's fill-up and once full, is the window
   solve as ``_odom_fused_step`` ran it inline (roll, write, masks,
   ``optimize_pose_window``, ``pose_marginal_covariance``), bit for bit, and
   captures nothing; the app's CPU run goes through it on every keyframe;
 - the runner's buffers, with the capture stood in by a plain call whose
-  outputs are overwritten in place at each replay as a graph's are: one
+  outputs are overwritten in place at each replay as a graph's are
+  (``test_torch_cuda_graph.py``'s ``stand_in``, which holds the shared
+  runner itself): one
   eager call, one capture, then loads and replays equal to the eager solve
   bit for bit, with kept results unchanged by later replays; fill-up calls
   stay eager; another key captures again;
@@ -31,11 +34,12 @@ import pytest
 import torch
 
 from slamtpu_torch.apps import odom_ndt
-from slamtpu_torch.core import se3
+from slamtpu_torch.core import cuda_graph, se3
 from slamtpu_torch.fusion.smoother import optimize_pose_window, pose_marginal_covariance
 from slamtpu_torch.ins.imu_config import ImuConfig
 from slamtpu_torch.lidar.ouster import LidarParams, synthetic_os2_metadata
 from slamtpu_torch.runtime.config import PipelineConfig, RegisterConfig
+from test_torch_cuda_graph import stand_in  # noqa: F401 (the fixture)
 
 torch.set_num_threads(1)
 W, ITERS = 4, 4
@@ -116,12 +120,31 @@ def _differ(got, want):
     return any(not torch.equal(a, b) for a, b in zip(got[0] + (got[1],), want[0] + (want[1],)))
 
 
+REPLAYS = cuda_graph.replays
+
+
 @pytest.mark.parametrize("device, full, want", [
     (CUDA, True, True), (CUDA, False, False), (CPU, True, False), (CPU, False, False),
     (torch.device("cuda", 1), True, True),
+    # the shared rule alone, as SvnGraph applies it
+    (CUDA, None, True), (CPU, None, False),
 ])
-def test_replays_only_a_full_window_on_a_card(device, full, want):
-    assert odom_ndt.replays(device, full) is want
+def test_replays_only_a_full_window_on_a_card(stand_in, monkeypatch, device, full, want):
+    """``cuda_graph.replays``: a CUDA device; the window adds that it is
+    full. The window's runner is held to it with its tensors taken to be
+    on ``device``: it captures at the second call where it replays, and
+    keeps no graph where it does not."""
+    assert REPLAYS(device) is (device.type == "cuda")
+    if full is None:
+        assert REPLAYS(device) is want
+        return
+    monkeypatch.setattr(cuda_graph, "replays", lambda _device: REPLAYS(device))
+    runner = odom_ndt.PoseWindowGraph()
+    n = W if full else W - 1
+    ring, new = window_inputs(50, n)
+    for _ in range(2):
+        _equal(runner(ring, new, min(n, W - 1), full, ITERS), inline_window_solve(ring, new, n))
+    assert runner.captures == int(want) and len(stand_in) == int(want) and bool(runner._graphs) is want
 
 
 @pytest.mark.parametrize("n", range(1, W + 1))
@@ -134,39 +157,6 @@ def test_cpu_runner_is_the_inline_solve(n):
     for _ in range(3):
         _equal(runner(ring, new, min(n, W - 1), n >= W, ITERS), want)
     assert runner.captures == 0 and not runner._graphs
-
-
-class _StandInGraph:
-    """A captured graph stood in by a plain call: each replay recomputes
-    the captured function from its static inputs and writes the results
-    into the outputs of the capture, in place, as a graph's replay does."""
-
-    def __init__(self, fn, out):
-        self.fn, self.out, self.replays = fn, out, 0
-
-    def replay(self):
-        ring, cov = self.fn()
-        for buf, t in zip(self.out[0] + (self.out[1],), ring + (cov,)):
-            buf.copy_(t)
-        self.replays += 1
-
-
-@pytest.fixture
-def stand_in(monkeypatch):
-    """CPU windows take the replay path, captured by ``_StandInGraph``;
-    yields the graphs made."""
-    graphs = []
-
-    def capture(fn, device):
-        assert device == CPU
-        fn()  # the run on the capture stream before the capture
-        out = fn()
-        graphs.append(_StandInGraph(fn, out))
-        return graphs[-1], out, {}
-
-    monkeypatch.setattr(odom_ndt, "replays", lambda device, full: full)
-    monkeypatch.setattr(odom_ndt, "capture_graph", capture)
-    return graphs
 
 
 def test_runner_runs_eager_captures_then_replays(stand_in):
@@ -350,7 +340,7 @@ def test_app_through_the_graph_on_the_card(tmp_path, monkeypatch):
     def run(replay: bool, split: bool = False):
         mp = pytest.MonkeyPatch()
         if not replay:
-            mp.setattr(odom_ndt, "replays", lambda *_a: False)
+            mp.setattr(cuda_graph, "replays", lambda *_a: False)
         try:
             app = odom_ndt.OdomNdtApp(cfg, "cuda", window=CARD_WINDOW)
             frames = list(app.ingest.synced_frames(path))

@@ -5,10 +5,12 @@ On the CPU (these count in the default lane):
 - ``svn_align_reg`` on a fixed three-plane scene gives the values the eager
   loop gave before the flow was split from the posterior (the plane-to-plane
   polish, the NDT polish from the mean, no polish);
-- the path choice: CPU points, or a process group's ranks, run
-  ``svn_align_reg`` itself (nothing captured, equal bit for bit); the
-  sorted-key app (``use_regmap=False``) never calls the runner; the RegMap
-  app on the CPU calls it and publishes what ``svn_align_reg`` publishes.
+- the path choice: CPU points run ``svn_align_reg`` itself (nothing
+  captured, equal bit for bit); the sorted-key app (``use_regmap=False``)
+  never calls the runner; the RegMap app on the CPU calls it and publishes
+  what ``svn_align_reg`` publishes. The shared runner under ``SvnGraph``,
+  a RegMap rebuild included, is held on the CPU in
+  ``test_torch_cuda_graph.py``.
 
 On the card (marker ``cuda``, skipped without one; tests/conftest.py imports
 JAX, so run it there as
@@ -17,18 +19,15 @@ JAX, so run it there as
 eagerly publishes the same poses, covariances, iteration counts and scores,
 captures once, and keeps 64 distinct results in flight.
 """
-from types import SimpleNamespace
-
 import numpy as np
 import pytest
 import torch
 
 from slamtpu_torch.apps import lo_svn as tlo
-from slamtpu_torch.core import se3
+from slamtpu_torch.core import cuda_graph, se3
 from slamtpu_torch.ins.imu_config import ImuConfig
 from slamtpu_torch.lidar.ouster import LidarParams, synthetic_os2_metadata
 from slamtpu_torch.mapping import gaussian_map
-from slamtpu_torch.ndt import svn
 from slamtpu_torch.ndt.gicp import regularize_plane_covariance, source_point_covariances
 from slamtpu_torch.ndt.regmap import build_regmap
 from slamtpu_torch.ndt.svn import SvnConfig, SvnGraph, svn_align_reg
@@ -129,30 +128,15 @@ def test_svn_align_reg_gives_the_eager_loops_values(fixed_scene, case):
     assert float(res.score) == pytest.approx(score, rel=1e-5)
 
 
-def test_replays_only_cuda_points_on_one_rank():
-    class Ranks(svn._OneDevice):  # a process group's view, as dist.sharded passes
-        pass
-
-    cuda_points = SimpleNamespace(is_cuda=True)
-    assert svn.replays(cuda_points) and svn.replays(cuda_points, svn._OneDevice)
-    assert not svn.replays(cuda_points, Ranks)
-    assert not svn.replays(torch.zeros((4, 3)))
-
-
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_runner_on_the_cpu_is_svn_align_reg(fixed_scene, case):
-    """CPU points, and a process group's ranks, take ``svn_align_reg``:
-    the same results bit for bit, every call, and no capture."""
+    """CPU points take ``svn_align_reg``: the same results bit for bit,
+    every call, and no capture."""
     src, mask, regmap, prior, src_cov, noise = fixed_scene
-
-    class Ranks(svn._OneDevice):
-        pass
-
     want = svn_align_reg(src, mask, regmap, prior, CASES[case], GRID, src_cov=src_cov, init_noise=noise)
     runner = SvnGraph()
-    for ranks in (svn._OneDevice, svn._OneDevice, Ranks):
-        _same(runner(src, mask, regmap, prior, CASES[case], GRID, src_cov=src_cov, init_noise=noise,
-                     _ranks=ranks), want)
+    for _ in range(3):
+        _same(runner(src, mask, regmap, prior, CASES[case], GRID, src_cov=src_cov, init_noise=noise), want)
     assert runner.captures == 0 and not runner._graphs
 
 
@@ -240,7 +224,7 @@ def test_graph_replay_equals_eager_on_the_card(tmp_path, monkeypatch):
 
     def run(replay: bool):
         if not replay:
-            monkeypatch.setattr(svn, "replays", lambda *_a, **_k: False)
+            monkeypatch.setattr(cuda_graph, "replays", lambda *_a, **_k: False)
         app = tlo.LoSvnApp(cfg, "cuda")
         flush, held = app.flush, []
 
