@@ -15,8 +15,10 @@ captures the SVN flow and the polish as one CUDA graph, and every keyframe
 after replays it with its points, mask, prior, particle draws and source
 covariances copied into the graph's static buffers, and the RegMap's
 tables copied in on rebuild keyframes only (nothing is captured again).
-The map build, projection, deskew, source covariances, ring insert and
-the posterior (``eigh``) stay eager; each keyframe's result is a copy of
+The DIRECT7 map and RegMap rebuild replays the same way (``regmap.MapGraph``,
+under ``map_graph_replay``: the first rebuild eager, the second captured).
+Projection, deskew, source covariances, ring insert and the posterior
+(``eigh``) stay eager; each keyframe's result is a copy of
 the graph's outputs, so the 64 kept in flight until ``flush`` stay
 distinct. On the CPU the registration is ``svn_align_reg`` itself.
 
@@ -49,8 +51,8 @@ from ..core.se3 import Pose3
 from ..lidar.deskew import deskew_points
 from ..lidar.project import project_frame_packed
 from ..mapping import gaussian_map
-from ..ndt.gicp import regularize_plane_covariance, sweep_point_covariances
-from ..ndt.regmap import build_regmap, build_regmap_kdtree
+from ..ndt.gicp import sweep_point_covariances
+from ..ndt.regmap import MapGraph, build_regmap_kdtree, build_target
 from ..ndt.svn import SvnConfig, SvnGraph, svn_align, svn_align_reg
 from ..runtime import checkpoint
 from ..runtime.config import PipelineConfig
@@ -97,6 +99,7 @@ def _lo_svn_core(
     exclude_recent: Optional[int] = None,  # rebuilds skip the newest ring clouds
     timer=None,
     svn_graph: Optional[SvnGraph] = None,  # the RegMap registration (else svn_align_reg)
+    map_graph: Optional[MapGraph] = None,  # the DIRECT7 map and RegMap (else build_target)
 ):
     """One keyframe on a projected sweep: (new regmap, KeyframeResult).
 
@@ -116,20 +119,17 @@ def _lo_svn_core(
     n_voxels = None
     if rebuild or sorted_key:
         with _span(timer, "map_rebuild"):
-            gmap = gaussian_map.build_map(
-                kf_points.reshape(W * N, 3), bmask.reshape(W * N), origin, svn_cfg.resolution,
-                capacity=capacity, min_points_per_voxel=min_points,
-            )
-            if sorted_key:
-                n_voxels = gmap.num_valid()
-            elif svn_cfg.kd_radius > 0.0:
-                regmap = build_regmap_kdtree(gmap, grid_shape=grid_shape)
-            else:
-                aux = None
-                if aniso:  # polish payload: plane-regularized target covariances
-                    cov_r = regularize_plane_covariance(gmap.cov)
-                    aux = torch.cat([gmap.mean, cov_r.reshape(-1, 9)], dim=1)
-                regmap = build_regmap(gmap, grid_shape=grid_shape, aux_payload=aux)
+            points, mask = kf_points.reshape(W * N, 3), bmask.reshape(W * N)
+            if sorted_key or svn_cfg.kd_radius > 0.0:
+                gmap = gaussian_map.build_map(points, mask, origin, svn_cfg.resolution,
+                                              capacity=capacity, min_points_per_voxel=min_points)
+                if sorted_key:
+                    n_voxels = gmap.num_valid()
+                else:
+                    regmap = build_regmap_kdtree(gmap, grid_shape=grid_shape)
+            else:  # DIRECT7; the polish payload: plane-regularized target covariances
+                regmap = (map_graph or build_target)(points, mask, origin, svn_cfg.resolution, capacity,
+                                                     min_points, grid_shape, aux=aniso)
     src_cov = None
     if aniso:
         with _span(timer, "src_covariances"):
@@ -161,7 +161,7 @@ def _lo_svn_step_packed(
     head: int, init_noise, regmap_in, svn_cfg: SvnConfig, capacity: int, min_points: int,
     grid_shape: tuple, publish_svn: bool = True, scan_grid: tuple = None, filters=None,
     deskew: bool = True, exclude_recent: Optional[int] = None, timer=None,
-    svn_graph: Optional[SvnGraph] = None,
+    svn_graph: Optional[SvnGraph] = None, map_graph: Optional[MapGraph] = None,
 ):
     """The whole per-keyframe device path: projection + filtering, INS
     deskew, then ``_lo_svn_core``. The result carries num_points."""
@@ -174,7 +174,7 @@ def _lo_svn_step_packed(
     regmap, res = _lo_svn_core(
         kf_points, kf_mask, new_points, scan.mask, prior, origin, rebuild, ins_anchor, head,
         init_noise, regmap_in, svn_cfg, capacity, min_points, grid_shape, publish_svn,
-        scan_grid, exclude_recent, timer, svn_graph,
+        scan_grid, exclude_recent, timer, svn_graph, map_graph,
     )
     return regmap, res._replace(num_points=scan.num_points)
 
@@ -216,6 +216,7 @@ class LoSvnApp:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
         self._svn_graph = SvnGraph()  # the registration, replayed as a CUDA graph on a card
+        self._map_graph = MapGraph()  # the DIRECT7 map and RegMap, replayed as a CUDA graph on a card
         self._trajectory: List[TrajectoryEntry] = []
         self._stats_archive = StatsArchive()
         self._pending: List[tuple] = []  # keyframes whose results are on the device
@@ -341,6 +342,7 @@ class LoSvnApp:
                 reg.map_capacity, reg.min_points_per_voxel, self.grid_shape,
                 self.publish == "svn", self._scan_grid, self.ingest.filters, self.cfg.deskew,
                 self._exclude_recent(), self.device_timer, svn_graph=self._svn_graph,
+                map_graph=self._map_graph,
             )
         self._kf_head = (self._kf_head + 1) % int(reg.keyframe_window)
         self._n_keyframes += 1

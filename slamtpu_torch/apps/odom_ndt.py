@@ -63,13 +63,16 @@ span) is a CUDA graph replay (``PoseWindowGraph``, a client of
 ``core.cuda_graph``): the first full-window keyframe runs eagerly, the
 second captures, the rest copy their inputs into the graph's buffers and
 replay it under a ``smoother_graph_replay`` span. The window's fill-up and
-the CPU stay eager.
+the CPU stay eager. The DIRECT7 target's map and RegMap (NDT_OMP and
+SVNNDT; the ``map_build`` span) go the same way (``regmap.MapGraph``): the
+first build eager, the second captured, the rest replayed under a
+``map_graph_replay`` span.
 
 Host syncs per keyframe in this module: one per Newton outer iteration
 (the loop's exit test; one per step for ``newton_align``; none for
 SVNNDT), one in ``torch.linalg.eigh`` (the
 LiDAR covariance floor), and the lagged read of the result vector and the
-point count. The map and RegMap build adds its own (``ndt/regmap.py``).
+point count. The DIRECT7 map and RegMap build has none.
 """
 from __future__ import annotations
 
@@ -91,7 +94,7 @@ from ..ndt.fused_math import gicp_align, gicp_align_aniso, newton_align_fused
 from ..ndt.gicp import gicp_map, gicp_map_aniso, sweep_point_covariances
 from ..ndt.multires import build_pyramid, multires_align
 from ..ndt.newton import NewtonConfig, NewtonResult, newton_align
-from ..ndt.regmap import RegMap, build_regmap, build_regmap_kdtree
+from ..ndt.regmap import MapGraph, RegMap, build_regmap, build_regmap_kdtree, build_target
 from ..ndt.svn import SvnConfig, SvnResult, svn_align, svn_align_reg
 from ..runtime import checkpoint
 from ..runtime.config import PipelineConfig
@@ -137,6 +140,7 @@ def _register_step(
     init_noise=None,  # (K, 6) standard-normal particle draws (SVNNDT)
     scan_grid: tuple = None,  # (cols, sub) of new_points: stencil source
     #   covariances for the anisotropic GICP engine (else voxel ones)
+    map_graph: MapGraph = None,  # the DIRECT7 target's build (else build_target inline)
 ):
     """Build the target map and register by the configured engine (the
     reference's registration_method switch, run/pipeline.cpp:464-481):
@@ -152,6 +156,8 @@ def _register_step(
     XLA loop, which they run on every backend. ``reg_pose`` adds the
     prior-pose pull toward it (with ``cfg.reg_weight``).
 
+    NDT_OMP and SVNNDT in DIRECT7 build their target with ``build_target``
+    (through ``map_graph``, which replays it as a CUDA graph on a card).
     With ``regmap_cache`` (NDT_OMP) the map and RegMap are built only when
     the host flag ``rebuild`` is set, in the cache's dtypes, and the call
     returns ``(result, regmap)`` so the caller carries the cache forward
@@ -176,19 +182,23 @@ def _register_step(
     regmap = regmap_cache
     if regmap_cache is None or rebuild:
         with _span(timer, "map_build"):
-            gmap = gaussian_map.to_float32(gaussian_map.build_map(
-                target_points.to(MAP_DTYPE), target_mask, origin, cfg.resolution, capacity=capacity,
-                min_points_per_voxel=min_points))
             kd_radius = svn_cfg.kd_radius if method == "SVNNDT" else cfg.kd_radius
-            build = build_regmap
-            if aniso:
-                gmap = gicp_map_aniso(gmap)
-            elif method == "GICP":
-                gmap = gicp_map(gmap)
-            elif kd_radius > 0.0:
-                build = build_regmap_kdtree
-            if method == "GICP" or not sorted_key:  # the sorted-key NDT engines search gmap itself
-                regmap = build(gmap, grid_shape=reg_grid)
+            if method in ("NDT_OMP", "SVNNDT") and kd_radius <= 0.0 and not sorted_key:  # DIRECT7
+                regmap = (map_graph or build_target)(target_points, target_mask, origin, cfg.resolution,
+                                                     capacity, min_points, reg_grid, MAP_DTYPE)
+            else:
+                gmap = gaussian_map.to_float32(gaussian_map.build_map(
+                    target_points.to(MAP_DTYPE), target_mask, origin, cfg.resolution, capacity=capacity,
+                    min_points_per_voxel=min_points))
+                build = build_regmap
+                if aniso:
+                    gmap = gicp_map_aniso(gmap)
+                elif method == "GICP":
+                    gmap = gicp_map(gmap)
+                elif kd_radius > 0.0:
+                    build = build_regmap_kdtree
+                if method == "GICP" or not sorted_key:  # the sorted-key NDT engines search gmap itself
+                    regmap = build(gmap, grid_shape=reg_grid)
             if regmap_cache is not None:
                 regmap = RegMap(*(None if a is None else a.to(c.dtype)
                                   for a, c in zip(regmap, regmap_cache)))
@@ -301,6 +311,7 @@ def _odom_fused_step(
     init_noise=None,  # (K, 6) particle draws (SVNNDT)
     scan_grid: tuple = None,  # see _register_step
     window_graph=None,  # a PoseWindowGraph (else the window solve runs eagerly)
+    map_graph: MapGraph = None,  # see _register_step
 ):
     """One complete odometry keyframe: (new carry, (100,) result vector
     [pose rot(9), trans(3), marginal cov(36), lidar cov(36), rel rot(9),
@@ -350,7 +361,7 @@ def _odom_fused_step(
     res = _register_step(target, target_mask, new_points, new_mask, guess, origin, cfg, capacity,
                          min_points, grid_shape, method=method, inner_iters=inner_iters,
                          final_eval=final_eval, timer=timer, svn_cfg=svn_cfg,
-                         init_noise=init_noise, scan_grid=scan_grid)
+                         init_noise=init_noise, scan_grid=scan_grid, map_graph=map_graph)
     with _span(timer, "blend"):
         blended32, w = robust.deviation_gated_blend(guess, res.pose, max_td, max_rd)
         blended = se3.cast(blended32, cd)
@@ -467,6 +478,7 @@ class OdomNdtApp:
         self._trust = robust.trust_gain_init_np()
         self._carry = None  # device window state; None until the first keyframe
         self._window_graph = PoseWindowGraph()  # the full window's solve, replayed as a CUDA graph on a card
+        self._map_graph = MapGraph()  # the DIRECT7 target's build, replayed as a CUDA graph on a card
         # (rot, trans) numpy float64 INS pose of the previous keyframe: the
         # source of the INS-relative registration seed
         self._prev_ins = None
@@ -562,7 +574,7 @@ class OdomNdtApp:
                 smoother_iters=self.smoother_iters, tgt_window=self.tgt_window,
                 tgt_exclude=self.tgt_exclude, timer=self.device_timer, svn_cfg=self.svn_cfg,
                 init_noise=self._particle_noise(), scan_grid=self._scan_grid,
-                window_graph=self._window_graph,
+                window_graph=self._window_graph, map_graph=self._map_graph,
             )
         self._n_keyframes += 1
         # the detector keeps its own copy of the cloud

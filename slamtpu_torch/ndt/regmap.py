@@ -15,6 +15,12 @@ accumulation; writes with no target cell go to a scratch row past the
 table, which is cut off. Every sentinel row stays inside its tensor, so no
 index ever leaves its range.
 
+The apps' DIRECT7 target (the map and its RegMap from one cloud) is
+``build_target``; on a CUDA device ``MapGraph`` replays it as one CUDA
+graph captured once per key (``core.cuda_graph``): the build has static
+shapes and no host sync (its writes of numbers go through fills or device
+values).
+
 The KDTREE search mode (``build_regmap_kdtree``) fills the same layout
 with each cell's 7 leaves nearest its centre among the 27 cells around
 it; the pair kernels then keep a slot only if its centroid lies within
@@ -28,10 +34,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core import cuda_graph
 from ..core.const import constant
 from ..core.se3 import Pose3
 from ..mapping import voxel
-from ..mapping.gaussian_map import GaussianMap
+from ..mapping.gaussian_map import GaussianMap, build_map, to_float32
+from .gicp import regularize_plane_covariance
 
 
 class RegMap(NamedTuple):
@@ -90,7 +98,7 @@ def _dilated_grid(keys, offsets, D: int, grid_shape: tuple):
     rows = torch.where(dvalid, torch.arange(D, dtype=torch.int32, device=dev), D)
     grid = torch.full((n_cells + 1,), D, dtype=torch.int32, device=dev)
     grid[dflat.long()] = rows  # distinct cells; index n_cells is reset below
-    grid[n_cells] = D
+    grid[n_cells:].fill_(D)  # a fill: writing a number through an index waits for the device
     return dcoords, dvalid, bbox_min, grid, overflow
 
 
@@ -117,13 +125,17 @@ def build_regmap(
         tr = grid[_cell_of(voxel.shift(coords, -off), gmap.valid, bbox_min, grid_shape).long()]
         trows.append(torch.where(gmap.valid & (tr < D), tr, D + 1).long())
 
+    # the flags' value on the device: a Python number written through a
+    # tensor index is copied from the host, which waits for the device
+    one = torch.ones((), dtype=dt, device=dev)
+
     def scatter_rows(payload):
         # rows D+1.. are the drop target for pairs without a cell
         out = torch.zeros((D + 2, 96), dtype=dt, device=dev)
         payload = torch.where(gmap.valid[:, None], payload, 0.0)
         for j, tr in enumerate(trows):
             out[tr, 12 * j : 12 * j + 12] = payload
-            out[tr, 84 + j] = 1.0
+            out[tr, 84 + j] = one
         out[D:] = 0.0  # the sentinel row, and the scratch row
         return out[: D + 1]
 
@@ -136,6 +148,47 @@ def build_regmap(
         resolution=gmap.resolution, num_valid=gmap.num_valid(), overflow=overflow,
         packed_aux=packed_aux,
     )
+
+
+def build_target(points, mask, origin, resolution: float, capacity: int, min_points: int,
+                 grid_shape: tuple, map_dtype: Optional[torch.dtype] = None,
+                 aux: bool = False) -> RegMap:
+    """The apps' DIRECT7 registration target from one cloud (N, 3): the
+    Gaussian map of the masked points and its RegMap. With ``map_dtype``
+    the voxel statistics are computed from the points cast to it and the
+    map comes back in float32 (odom_ndt's float64 statistics); without, the
+    points' dtype holds throughout (lo_svn). ``aux`` fills ``packed_aux``
+    with the plane-regularized covariances (lo_svn's plane-to-plane
+    polish). Static shapes and no host sync: ``MapGraph`` captures it."""
+    if map_dtype is not None:
+        points = points.to(map_dtype)
+    gmap = build_map(points, mask, origin, resolution, capacity=capacity, min_points_per_voxel=min_points)
+    if map_dtype is not None:
+        gmap = to_float32(gmap)
+    aux_payload = None
+    if aux:
+        aux_payload = torch.cat([gmap.mean, regularize_plane_covariance(gmap.cov).reshape(-1, 9)], dim=1)
+    return build_regmap(gmap, grid_shape=grid_shape, aux_payload=aux_payload)
+
+
+class MapGraph(cuda_graph.GraphRunner):
+    """``build_target`` replayed as one CUDA graph on a CUDA device
+    (``core.cuda_graph``); inline elsewhere. Keyed by all the capture bakes
+    in: N, the points' and the origin's dtypes, capacity, ``min_points``,
+    grid shape, resolution, ``map_dtype``, ``aux`` and device. The buffers
+    are the points, the mask and the origin."""
+
+    def __init__(self):
+        super().__init__(build_target, "map_graph_replay")
+
+    def __call__(self, points, mask, origin, resolution: float, capacity: int, min_points: int,
+                 grid_shape: tuple, map_dtype: Optional[torch.dtype] = None, aux: bool = False) -> RegMap:
+        args = (points, mask, origin, resolution, capacity, min_points, tuple(grid_shape), map_dtype, aux)
+        if not cuda_graph.replays(points.device):
+            return build_target(*args)
+        key = (points.shape[0], points.dtype, origin.dtype, capacity, min_points, tuple(grid_shape),
+               float(resolution), map_dtype, aux, points.device)
+        return self.run(key, points.device, args)
 
 
 # the 3 x 3 x 3 cell neighbourhood, in the reference's (meshgrid "ij") order

@@ -12,8 +12,8 @@ in place at each replay, as a graph's are (``_StandInGraph``; the
 - ``svn.SvnGraph`` through the stand-in equals ``svn_align_reg`` bit for bit
   over keyframes that swap in a new RegMap midway.
 
-The card tests of the two clients are in ``test_torch_svn_graph.py`` and
-``test_torch_pose_window_graph.py``.
+The card tests of the clients are in ``test_torch_svn_graph.py``,
+``test_torch_pose_window_graph.py`` and ``test_torch_map_graph.py``.
 """
 from typing import NamedTuple
 
