@@ -22,7 +22,22 @@ device. The host keeps the window as numpy, as the reference does: it reads
 the step's result vector and the window solution once per keyframe each,
 and ships the factor arrays through pinned memory as one buffer. Other host
 reads: one per Newton outer iteration (``fused_math.HOST_READS``) and the
-RegMap overflow count every 32 keyframes.
+RegMap overflow count every 32 keyframes. Every keyframe is on the host
+when ``process`` returns; ``flush`` only collects the device timer.
+
+On a CUDA device the DIRECT7 target's map and RegMap build is a CUDA graph
+replay (``regmap.MapGraph``, span ``map_graph_replay``), and so is the full
+window's re-solve, the Gauss-Newton iterations and the newest state's
+marginal covariance (``WindowGraph``, span ``smoother_graph_replay``, as
+odom_ndt's window replay): each runs eagerly at its first call, is
+captured at its second and replayed after. The window's fill-up and the
+CPU stay eager.
+
+With ``keep_record`` (off by default) ``record`` keeps, for each keyframe,
+what the host holds after its re-solve (``KeyframeRecord``): the window's
+solved states, the poses the keyframe's target was fused at and its
+registration's pose, taken from the reads above (no read of its own), so
+that a plain reference can redo the next keyframe from them.
 
 ``save_checkpoint``/``resume_from`` carry the window, the keyframe ring
 and the host state (``runtime.checkpoint``).
@@ -41,20 +56,21 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..core import se3
+from ..core import cuda_graph, se3
 from ..core.se3 import Pose3
 from ..fusion import robust
-from ..fusion.graph import WindowState, empty_factors
+from ..fusion.graph import Factors, WindowState, empty_factors
 from ..fusion.preintegration import ImuBias, ImuNoise, NavState, integrate, predict
 from ..fusion.smoother import SmootherConfig, marginal_covariance, optimize
 from ..ins.gravity import gravity_wgs84
 from ..mapping import gaussian_map
 from ..ndt.newton import NewtonConfig
+from ..ndt.regmap import MapGraph
 from ..runtime import checkpoint
 from ..runtime.config import PipelineConfig
 from ..runtime.device_timer import DeviceStageTimer
@@ -70,6 +86,7 @@ log = logging.getLogger("slamtpu_torch.ligo_tc")
 IMU_WINDOW_CAPACITY = 64  # samples per sweep interval at most (50 Hz x ~0.2 s)
 FLAT = 27  # the step's host scalars: prev pose (12), vel (3), bias (6), gravity (3), origin (3)
 SMOOTHER_ITERATIONS = 6
+RECORD_CAP = 4096  # keyframes ``LigoTcApp.record`` keeps, the newest
 
 
 def _ligo_step(
@@ -91,6 +108,7 @@ def _ligo_step(
     inner_iters: int = 2,
     final_eval: bool = False,  # see odom_ndt._register_step
     timer=None,
+    map_graph: MapGraph = None,  # the DIRECT7 target's build (see odom_ndt._register_step)
 ):
     """One tightly coupled keyframe (pipeline_ligo_tc.cpp:429-542):
     preintegrate, predict, fuse the keyframe window at its optimized poses
@@ -115,6 +133,7 @@ def _ligo_step(
         world, kf_mask.reshape(K * N), new_points, new_mask, pred32, flat[24:27].to(f32), cfg,
         capacity, min_points, grid_shape, inner_iters=inner_iters, final_eval=final_eval,
         timer=timer, reg_pose=pred32, regmap_cache=None if sorted_key else regmap_in, rebuild=rebuild,
+        map_graph=map_graph,
     )
     res, regmap = (out, regmap_in) if sorted_key else out
     dt = flat.dtype
@@ -128,11 +147,67 @@ def _ligo_step(
     ])
 
 
+class KeyframeRecord(NamedTuple):
+    """What the host holds after one keyframe's re-solve."""
+
+    states: np.ndarray  # (n, 21) float64 the window's solved states, oldest first: rot(9), trans(3), vel(3), bias(6)
+    target_poses: Optional[np.ndarray]  # (K, 12) float32 the ring slots' poses the step fused its target at
+    newton: Optional[np.ndarray]  # (12,) float64 the registration's pose: rot(9), trans(3)
+
+
+def _window_solve(buf, fields: tuple, cur: int, cfg: SmootherConfig, tpl: Factors) -> torch.Tensor:
+    """Device half of the window re-solve: the factor template ``tpl``
+    filled from the host buffer ``buf`` (laid out by ``fields``), the
+    smoother over it, then state ``cur``'s marginal covariance. Static
+    shapes and no host sync. Returns [rot, trans, vel, bias, cov] flat."""
+    parts = torch.split(buf, [int(np.prod(shape)) for _, shape in fields])
+    a = {name: t.view(shape) for (name, shape), t in zip(fields, parts)}
+    active, b_active = a["active"] > 0.5, a["b_active"] > 0.5
+    state = WindowState(a["rot"], a["trans"], a["vel"], a["bias"], active)
+    factors = tpl._replace(
+        prior_pose=tpl.prior_pose._replace(rot=a["fp_rot"], trans=a["fp_trans"],
+                                           sqrt_info=a["fp_si"], active=active),
+        prior_vel=tpl.prior_vel._replace(value=a["fv_val"], active=active),
+        prior_bias=tpl.prior_bias._replace(value=a["fbias_val"]),
+        between=tpl.between._replace(rot=a["fb_rot"], trans=a["fb_trans"], sqrt_info=a["fb_si"],
+                                     active=b_active),
+        imu=tpl.imu._replace(
+            dR=a["dR"], dv=a["dv"], dp=a["dp"], dt=a["dt"], dR_dbg=a["dR_dbg"],
+            dv_dba=a["dv_dba"], dv_dbg=a["dv_dbg"], dp_dba=a["dp_dba"], dp_dbg=a["dp_dbg"],
+            bias_hat=a["bias_hat"], sqrt_info=a["fi_si"], active=b_active),
+    )
+    result = optimize(state, factors, cfg)
+    cov = marginal_covariance(result.hessian, cur)
+    st = result.state
+    return torch.cat([st.rot.reshape(-1), st.trans.reshape(-1), st.vel.reshape(-1),
+                      st.bias.reshape(-1), cov.reshape(-1)])
+
+
+class WindowGraph(cuda_graph.GraphRunner):
+    """``_window_solve`` with the full window's re-solve replayed as one
+    CUDA graph on a CUDA device (``core.cuda_graph``); a window still
+    filling moves its newest state, so it stays eager, as does the CPU.
+    Keyed by (W, ``SmootherConfig``, dtype, device); the buffer is the
+    host's factor arrays, the factor template a sticky input. The graph
+    calls ``optimize`` and ``marginal_covariance`` as this module names them
+    when it is captured."""
+
+    def __init__(self):
+        super().__init__(_window_solve, "smoother_graph_replay")
+
+    def __call__(self, buf, fields: tuple, cur: int, cfg: SmootherConfig, tpl: Factors, full: bool):
+        if not (full and cuda_graph.replays(buf.device)):
+            return _window_solve(buf, fields, cur, cfg, tpl)
+        key = (fields[0][1][0], cfg, buf.dtype, buf.device)
+        return self.run(key, buf.device, (buf, fields, cur, cfg), sticky=(tpl,))
+
+
 @dataclasses.dataclass
 class LigoTcApp:
     cfg: PipelineConfig
     device: torch.device  # where the keyframe path runs ("cuda" or "cpu")
     window: int = 6  # smoother window size (states kept live)
+    keep_record: bool = False  # fill ``record`` (for a reference that redoes keyframes)
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -184,6 +259,9 @@ class LigoTcApp:
         self._trust = robust.trust_gain_init_np()
         self._win: List[dict] = []  # per-state dicts (numpy): pose, vel, bias, ins, pim, ...
         self._factor_template = self._template()
+        self._map_graph = MapGraph()  # the DIRECT7 target's build, replayed as a CUDA graph on a card
+        self._window_graph = WindowGraph()  # the full window's re-solve, likewise
+        self.record: Dict[int, KeyframeRecord] = {}  # keyframe -> the host state after its re-solve
 
     def _template(self):
         """The static factor skeleton (indices and fixed whitenings) on the
@@ -213,8 +291,14 @@ class LigoTcApp:
             self.process(synced)
             if len(self.trajectory) >= max_keyframes:
                 break
-        self.device_timer.collect()
+        self.flush()
         return self.trajectory
+
+    def flush(self):
+        """Every keyframe is published on the host when ``process`` returns
+        (its step and its re-solve are read back there); this collects the
+        device timer's spans."""
+        self.device_timer.collect()
 
     def _imu_window(self, synced) -> np.ndarray:
         """Padded (64, 7) [accel(3), gyro(3), dt] window from the sweep's INS
@@ -284,8 +368,9 @@ class LigoTcApp:
         rebuild = self._cadence.tick(force=shifted)
         # the step's host inputs reach the device in one copy
         K = len(self._kf_slots)
+        target_poses = self._window_poses()
         host = np.concatenate([
-            self._window_poses().ravel(),
+            target_poses.ravel(),
             np.asarray(prev["pose"].rot, np.float64).ravel(), np.asarray(prev["pose"].trans, np.float64),
             np.asarray(prev["vel"], np.float64), np.asarray(prev["bias"], np.float64),
             self._gravity, np.asarray(self._origin, np.float64),
@@ -298,7 +383,7 @@ class LigoTcApp:
                 buf[12 * K + FLAT:].view(IMU_WINDOW_CAPACITY, 6), imu[:, 6],
                 buf[12 * K:12 * K + FLAT], rebuild, self._cadence.regmap, self.noise,
                 self.newton_cfg, reg.map_capacity, reg.min_points_per_voxel, self.grid_shape,
-                reg.fused_inner_iters, timer=self.device_timer,
+                reg.fused_inner_iters, timer=self.device_timer, map_graph=self._map_graph,
             )
             out = torch.cat([out, scan.num_points.reshape(1).to(out.dtype)]).cpu().numpy()
         if self._cadence.regmap is not None and (self._cadence._idx & 31) == 1:
@@ -340,9 +425,9 @@ class LigoTcApp:
         if len(self._win) > self.window:
             self._win.pop(0)
 
-        with self.timer.span("smoother"):
+        with self.timer.span("smoother"), self.device_timer.span("fuse"):
             # _fuse writes the optimized states back into self._win
-            pose_opt, cov_opt = self._fuse()
+            pose_opt, cov_opt = self._fuse(k, target_poses, out[295:307].copy())
         self._insert_keyframe(scan.points, scan.mask, entry)  # body frame; _ligo_step poses it
         self.device_timer.keyframe_queued(k)
         if self.viz is not None:
@@ -381,15 +466,20 @@ class LigoTcApp:
                      ins_vel=vel_ned, pim=None, rel=None, rel_cov=None)
         self._insert_keyframe(scan.points, scan.mask, first)
         self._win = [first]
+        self._keep_record(len(self.trajectory), KeyframeRecord(
+            np.concatenate([ins_np.rot.ravel(), ins_np.trans, vel_ned, np.zeros(6)])[None], None, None))
         if self.viz is not None:
             self.viz.push(self.viz.subsample(scan), ins_np, synced.scan.frame_id, ins_pose=ins_np)
         self.trajectory.append(TrajectoryEntry(synced.t_end, synced.scan.frame_id, ins_np, ins_np))
 
-    def _fuse(self):
+    def _fuse(self, k: int, target_poses, newton):
         """Window re-solve: the factor arrays are assembled in numpy, reach
         the device as one buffer, and the solution comes back in one read;
-        it is written into the window entries. Returns the newest state's
-        pose and its (15, 15) marginal covariance."""
+        it is written into the window entries and, with ``keep_record``,
+        kept in ``record`` under keyframe ``k`` with the step's
+        ``target_poses`` and ``newton`` pose.
+        Returns the newest state's pose and its (15, 15) marginal
+        covariance."""
         W, n = self.window, len(self._win)
         pad, pad_b = W - n, W - n
         eye3, eye6, eye15 = np.eye(3), np.eye(6), np.eye(15)
@@ -428,42 +518,25 @@ class LigoTcApp:
             bias_hat=stack_pim("bias_hat", np.zeros(6)),
             fi_si=stack((np_sqrt_info_from_cov(p["cov"]) for p in pims), eye15, pad_b),
         )
+        fields = tuple((name, a.shape) for name, a in args.items())  # the buffer's layout
         buf = to_device(np.concatenate([a.ravel() for a in args.values()]), self.device)
-        parts = torch.split(buf, [a.size for a in args.values()])
-        a = {k: t.view(v.shape) for (k, v), t in zip(args.items(), parts)}
-        out = self._fuse_device(a, n - 1).cpu().numpy()
+        with self.device_timer.span("smoother"):
+            flat = self._window_graph(buf, fields, n - 1, self.smoother_cfg, self._factor_template, n == W)
+        out = flat.cpu().numpy()
         rot, trans, vel, bias, cov = np.split(out, np.cumsum([9 * W, 3 * W, 3 * W, 6 * W]))
         rot, trans = rot.reshape(W, 3, 3), trans.reshape(W, 3)
         vel, bias = vel.reshape(W, 3), bias.reshape(W, 6)
-        for k in range(n):
-            self._win[k]["pose"] = Pose3(rot[k], trans[k])
-            self._win[k]["vel"] = vel[k]
-            self._win[k]["bias"] = bias[k]
+        for i in range(n):
+            self._win[i]["pose"] = Pose3(rot[i], trans[i])
+            self._win[i]["vel"] = vel[i]
+            self._win[i]["bias"] = bias[i]
+        states = np.concatenate([rot.reshape(W, 9), trans, vel, bias], axis=1)[:n]
+        self._keep_record(k, KeyframeRecord(states, target_poses, newton))
         return Pose3(rot[n - 1], trans[n - 1]), cov.reshape(15, 15)
 
-    def _fuse_device(self, a: dict, cur: int) -> torch.Tensor:
-        """Device half of the window re-solve: the smoother over the factor
-        template filled from ``a``, then state ``cur``'s marginal covariance.
-        Returns [rot, trans, vel, bias, cov] flat."""
-        tpl = self._factor_template
-        active, b_active = a["active"] > 0.5, a["b_active"] > 0.5
-        state = WindowState(a["rot"], a["trans"], a["vel"], a["bias"], active)
-        factors = tpl._replace(
-            prior_pose=tpl.prior_pose._replace(rot=a["fp_rot"], trans=a["fp_trans"],
-                                               sqrt_info=a["fp_si"], active=active),
-            prior_vel=tpl.prior_vel._replace(value=a["fv_val"], active=active),
-            prior_bias=tpl.prior_bias._replace(value=a["fbias_val"]),
-            between=tpl.between._replace(rot=a["fb_rot"], trans=a["fb_trans"], sqrt_info=a["fb_si"],
-                                         active=b_active),
-            imu=tpl.imu._replace(
-                dR=a["dR"], dv=a["dv"], dp=a["dp"], dt=a["dt"], dR_dbg=a["dR_dbg"],
-                dv_dba=a["dv_dba"], dv_dbg=a["dv_dbg"], dp_dba=a["dp_dba"], dp_dbg=a["dp_dbg"],
-                bias_hat=a["bias_hat"], sqrt_info=a["fi_si"], active=b_active),
-        )
-        with self.device_timer.span("smoother"):
-            result = optimize(state, factors, self.smoother_cfg)
-        with self.device_timer.span("covariance"):
-            cov = marginal_covariance(result.hessian, cur)
-        st = result.state
-        return torch.cat([st.rot.reshape(-1), st.trans.reshape(-1), st.vel.reshape(-1),
-                          st.bias.reshape(-1), cov.reshape(-1)])
+    def _keep_record(self, k: int, rec: KeyframeRecord):
+        if not self.keep_record:
+            return
+        self.record[k] = rec
+        if len(self.record) > RECORD_CAP:
+            del self.record[next(iter(self.record))]

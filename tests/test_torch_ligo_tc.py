@@ -173,7 +173,7 @@ def test_run_replay_matches_reference(replay, reference_runs, every, monkeypatch
     assert all(e.covariance is not None and e.covariance.shape == (15, 15) and np.isfinite(e.covariance).all()
                for e in tt[1:])
     assert set(tapp.device_timer.summary()) == {"project", "deskew", "preintegrate", "map_build",
-                                                "newton", "smoother", "covariance"}
+                                                "newton", "fuse", "smoother"}
     # the map is built on rebuild keyframes only
     assert tapp.device_timer.summary()["map_build"]["n"] == len(range(0, len(tt) - 1, every))
 
