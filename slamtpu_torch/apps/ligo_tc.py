@@ -29,9 +29,10 @@ On a CUDA device the DIRECT7 target's map and RegMap build is a CUDA graph
 replay (``regmap.MapGraph``, span ``map_graph_replay``), and so is the full
 window's re-solve, the Gauss-Newton iterations and the newest state's
 marginal covariance (``WindowGraph``, span ``smoother_graph_replay``, as
-odom_ndt's window replay): each runs eagerly at its first call, is
-captured at its second and replayed after. The window's fill-up and the
-CPU stay eager.
+odom_ndt's window replay), and so is each Newton outer iteration, the pull
+included (``fused_math.NewtonGraph``, span ``newton_graph_replay``): each
+runs eagerly at its first call, is captured at its second and replayed
+after. The window's fill-up and the CPU stay eager.
 
 With ``keep_record`` (off by default) ``record`` keeps, for each keyframe,
 what the host holds after its re-solve (``KeyframeRecord``): the window's
@@ -69,6 +70,7 @@ from ..fusion.preintegration import ImuBias, ImuNoise, NavState, integrate, pred
 from ..fusion.smoother import SmootherConfig, marginal_covariance, optimize
 from ..ins.gravity import gravity_wgs84
 from ..mapping import gaussian_map
+from ..ndt.fused_math import NewtonGraph
 from ..ndt.newton import NewtonConfig
 from ..ndt.regmap import MapGraph
 from ..runtime import checkpoint
@@ -109,6 +111,7 @@ def _ligo_step(
     final_eval: bool = False,  # see odom_ndt._register_step
     timer=None,
     map_graph: MapGraph = None,  # the DIRECT7 target's build (see odom_ndt._register_step)
+    newton_graph: NewtonGraph = None,  # Newton's outer iterations (see odom_ndt._register_step)
 ):
     """One tightly coupled keyframe (pipeline_ligo_tc.cpp:429-542):
     preintegrate, predict, fuse the keyframe window at its optimized poses
@@ -133,7 +136,7 @@ def _ligo_step(
         world, kf_mask.reshape(K * N), new_points, new_mask, pred32, flat[24:27].to(f32), cfg,
         capacity, min_points, grid_shape, inner_iters=inner_iters, final_eval=final_eval,
         timer=timer, reg_pose=pred32, regmap_cache=None if sorted_key else regmap_in, rebuild=rebuild,
-        map_graph=map_graph,
+        map_graph=map_graph, newton_graph=newton_graph,
     )
     res, regmap = (out, regmap_in) if sorted_key else out
     dt = flat.dtype
@@ -261,6 +264,7 @@ class LigoTcApp:
         self._factor_template = self._template()
         self._map_graph = MapGraph()  # the DIRECT7 target's build, replayed as a CUDA graph on a card
         self._window_graph = WindowGraph()  # the full window's re-solve, likewise
+        self._newton_graph = NewtonGraph()  # Newton's outer iterations, likewise
         self.record: Dict[int, KeyframeRecord] = {}  # keyframe -> the host state after its re-solve
 
     def _template(self):
@@ -384,6 +388,7 @@ class LigoTcApp:
                 buf[12 * K:12 * K + FLAT], rebuild, self._cadence.regmap, self.noise,
                 self.newton_cfg, reg.map_capacity, reg.min_points_per_voxel, self.grid_shape,
                 reg.fused_inner_iters, timer=self.device_timer, map_graph=self._map_graph,
+                newton_graph=self._newton_graph,
             )
             out = torch.cat([out, scan.num_points.reshape(1).to(out.dtype)]).cpu().numpy()
         if self._cadence.regmap is not None and (self._cadence._idx & 31) == 1:

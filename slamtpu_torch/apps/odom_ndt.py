@@ -66,7 +66,10 @@ replay it under a ``smoother_graph_replay`` span. The window's fill-up and
 the CPU stay eager. The DIRECT7 target's map and RegMap (NDT_OMP and
 SVNNDT; the ``map_build`` span) go the same way (``regmap.MapGraph``): the
 first build eager, the second captured, the rest replayed under a
-``map_graph_replay`` span.
+``map_graph_replay`` span. So does each Newton outer iteration of the
+fused NDT_OMP and isotropic GICP engines (``fused_math.NewtonGraph``, span
+``newton_graph_replay``, inside ``newton``): the loop and its exit reads
+stay on the host.
 
 Host syncs per keyframe in this module: one per Newton outer iteration
 (the loop's exit test; one per step for ``newton_align``; none for
@@ -90,7 +93,7 @@ from ..fusion.graph import sqrt_info_from_cov
 from ..fusion.loop_closure import LoopClosureConfig, LoopDetector, refine_trajectory
 from ..fusion.smoother import optimize_pose_window, pose_marginal_covariance
 from ..mapping import gaussian_map
-from ..ndt.fused_math import gicp_align, gicp_align_aniso, newton_align_fused
+from ..ndt.fused_math import NewtonGraph, gicp_align, gicp_align_aniso, newton_align_fused
 from ..ndt.gicp import gicp_map, gicp_map_aniso, sweep_point_covariances
 from ..ndt.multires import build_pyramid, multires_align
 from ..ndt.newton import NewtonConfig, NewtonResult, newton_align
@@ -141,6 +144,7 @@ def _register_step(
     scan_grid: tuple = None,  # (cols, sub) of new_points: stencil source
     #   covariances for the anisotropic GICP engine (else voxel ones)
     map_graph: MapGraph = None,  # the DIRECT7 target's build (else build_target inline)
+    newton_graph: NewtonGraph = None,  # the fused Newton's outer iterations (else eager)
 ):
     """Build the target map and register by the configured engine (the
     reference's registration_method switch, run/pipeline.cpp:464-481):
@@ -158,6 +162,8 @@ def _register_step(
 
     NDT_OMP and SVNNDT in DIRECT7 build their target with ``build_target``
     (through ``map_graph``, which replays it as a CUDA graph on a card).
+    The fused NDT_OMP and isotropic GICP registrations hand ``newton_graph``
+    to ``newton_align_fused``, which replays their outer iterations on a card.
     With ``regmap_cache`` (NDT_OMP) the map and RegMap are built only when
     the host flag ``rebuild`` is set, in the cache's dtypes, and the call
     returns ``(result, regmap)`` so the caller carries the cache forward
@@ -226,7 +232,8 @@ def _register_step(
         with _span(timer, "newton"):
             res = newton_align_fused(new_points, new_mask, regmap, init_guess, cfg, grid_shape,
                                      inner_iters=inner_iters, reg_pose=reg_pose,
-                                     final_eval=final_eval, _gicp=method == "GICP")
+                                     final_eval=final_eval, _gicp=method == "GICP",
+                                     newton_graph=newton_graph)
     return res if regmap_cache is None else (res, regmap)
 
 
@@ -312,6 +319,7 @@ def _odom_fused_step(
     scan_grid: tuple = None,  # see _register_step
     window_graph=None,  # a PoseWindowGraph (else the window solve runs eagerly)
     map_graph: MapGraph = None,  # see _register_step
+    newton_graph: NewtonGraph = None,  # see _register_step
 ):
     """One complete odometry keyframe: (new carry, (100,) result vector
     [pose rot(9), trans(3), marginal cov(36), lidar cov(36), rel rot(9),
@@ -361,7 +369,8 @@ def _odom_fused_step(
     res = _register_step(target, target_mask, new_points, new_mask, guess, origin, cfg, capacity,
                          min_points, grid_shape, method=method, inner_iters=inner_iters,
                          final_eval=final_eval, timer=timer, svn_cfg=svn_cfg,
-                         init_noise=init_noise, scan_grid=scan_grid, map_graph=map_graph)
+                         init_noise=init_noise, scan_grid=scan_grid, map_graph=map_graph,
+                         newton_graph=newton_graph)
     with _span(timer, "blend"):
         blended32, w = robust.deviation_gated_blend(guess, res.pose, max_td, max_rd)
         blended = se3.cast(blended32, cd)
@@ -479,6 +488,7 @@ class OdomNdtApp:
         self._carry = None  # device window state; None until the first keyframe
         self._window_graph = PoseWindowGraph()  # the full window's solve, replayed as a CUDA graph on a card
         self._map_graph = MapGraph()  # the DIRECT7 target's build, replayed as a CUDA graph on a card
+        self._newton_graph = NewtonGraph()  # Newton's outer iterations, likewise
         # (rot, trans) numpy float64 INS pose of the previous keyframe: the
         # source of the INS-relative registration seed
         self._prev_ins = None
@@ -575,6 +585,7 @@ class OdomNdtApp:
                 tgt_exclude=self.tgt_exclude, timer=self.device_timer, svn_cfg=self.svn_cfg,
                 init_noise=self._particle_noise(), scan_grid=self._scan_grid,
                 window_graph=self._window_graph, map_graph=self._map_graph,
+                newton_graph=self._newton_graph,
             )
         self._n_keyframes += 1
         # the detector keeps its own copy of the cloud

@@ -37,7 +37,11 @@ counts kernel launches, and only those.
 The Newton loop (``newton.drive``) is a Python loop over outer iterations,
 one row lookup each. Its exit test reads the iteration count and the
 convergence flag on the host: one device sync per outer iteration, counted
-in ``HOST_READS`` (``newton.HOST_READS``).
+in ``HOST_READS`` (``newton.HOST_READS``). On a CUDA device ``NewtonGraph``
+replays the body of each outer iteration (the lookup, the inner steps, the
+staleness freeze and the state's update) as one CUDA graph captured once
+per key (``core.cuda_graph``, span ``newton_graph_replay``); the loop and
+its reads stay on the host as they are.
 """
 from __future__ import annotations
 
@@ -46,10 +50,10 @@ import threading
 
 import torch
 
-from ..core import se3
+from ..core import cuda_graph, se3
 from ..core.se3 import Pose3
 from .constants import gauss_constants
-from .newton import HOST_READS, NewtonConfig, NewtonResult, _NewtonRun, drive
+from .newton import HOST_READS, NewtonConfig, NewtonResult, OuterState, _NewtonRun, drive, outer_step
 from .objective import MAX_EXPONENT_ARG, MIN_FACTOR, NdtObjective, sanitize_points
 from .regmap import RegMap, grid_rows, radius_gate
 
@@ -500,7 +504,7 @@ def gicp_align_aniso(points, mask, src_cov, regmap: RegMap, init_pose: Pose3, cf
 def newton_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig,
                        grid_shape: tuple, inner_iters: int = 1, reg_pose: Pose3 = None,
                        final_eval: bool = False, src_cov=None, reduce=None, _gicp: bool = False,
-                       _gicp_max_mahal: float = 9.0) -> NewtonResult:
+                       _gicp_max_mahal: float = 9.0, newton_graph: NewtonGraph = None) -> NewtonResult:
     """Newton registration on the fused kernel: NDT; VGICP with _gicp; or,
     with ``src_cov`` ((N, 3, 3) body-frame source covariances), plane-to-plane
     GICP on the table of a ``gicp_map_aniso`` RegMap.
@@ -524,9 +528,14 @@ def newton_align_fused(points, mask, regmap: RegMap, init_pose: Pose3, cfg: Newt
     reference's ``gicp_align_aniso`` applies none). ``reduce`` maps each
     evaluation's raw kernel sums (``rows_objective``): the multi-device
     layer passes a sum over the ranks, whose equal results give every rank
-    the same loop decisions."""
+    the same loop decisions.
+
+    ``newton_graph`` (a ``NewtonGraph``) replays each outer iteration as one
+    CUDA graph where the points are on a CUDA device and no ``reduce`` is
+    given (a collective stays eager); the loop takes the same decisions and
+    the results are equal bit for bit."""
     return drive(_fused_run(points, mask, regmap, init_pose, cfg, grid_shape, inner_iters, reg_pose,
-                            src_cov, reduce, _gicp, _gicp_max_mahal), final_eval)
+                            src_cov, reduce, _gicp, _gicp_max_mahal, newton_graph), final_eval)
 
 
 def newton_align_fused_batch(points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig,
@@ -547,27 +556,23 @@ def newton_align_fused_batch(points, mask, regmap: RegMap, init_pose: Pose3, cfg
         for run in running:
             run.outer_iteration()
         HOST_READS["newton"] += 1
-        state = torch.stack([torch.stack([r.it, r.conv.to(torch.int32)]) for r in runs]).tolist()
+        state = torch.stack([r.read for r in runs]).tolist()
         running = [r for r, (it, conv) in zip(runs, state) if it < cfg.max_iterations and not conv]
     res = [r.result(final_eval) for r in runs]
     return NewtonResult(Pose3(torch.stack([r.pose.rot for r in res]), torch.stack([r.pose.trans for r in res])),
                         *(torch.stack(f) for f in list(zip(*res))[1:]))
 
 
-def _fused_run(points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig, grid_shape: tuple,
-               inner_iters: int, reg_pose: Pose3 = None, src_cov=None, reduce=None, gicp: bool = False,
-               gicp_max_mahal: float = 9.0) -> _NewtonRun:
-    """One registration of ``newton_align_fused`` in float32: each lookup is
-    the points' RegMap rows (and the KDTREE gate block) at the lookup pose,
-    each evaluation one launch of a pair kernel on those rows."""
+def _fused_ops(points, mask, ptsT, scovT, regmap: RegMap, cfg: NewtonConfig, grid_shape: tuple, gicp: bool,
+               gicp_max_mahal: float, reduce=None):
+    """(lookup, evaluate) of one registration of ``newton_align_fused`` on
+    the sanitized points and their float32 transpose: each lookup is the
+    points' RegMap rows (and the KDTREE gate block) at the lookup pose, each
+    evaluation one launch of a pair kernel on those rows."""
     d1, d2, _ = gauss_constants(cfg.resolution, cfg.outlier_ratio)
-    if gicp or src_cov is not None:
+    if gicp or scovT is not None:
         d2 = float(cfg.gicp_max_corr_dist) ** 2  # the d2 slot carries the distance gate
-    f32 = torch.float32
-    points, mask = sanitize_points(points, mask)
-    ptsT = points.to(f32).t().contiguous()
-    scovT = None if src_cov is None else src_cov.reshape(-1, 9).t().contiguous().to(f32)
-    kd_radius = cfg.kd_radius if src_cov is None else 0.0
+    kd_radius = cfg.kd_radius if scovT is None else 0.0
 
     def lookup(pose):
         """(rows, gate) at ``pose``."""
@@ -577,4 +582,59 @@ def _fused_run(points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig
         return rows_objective(ptsT, regmap.packed, rows[0], pose, d1, d2, cfg.hess_lambda, gicp=gicp,
                               gicp_max_mahal=gicp_max_mahal, src_covT=scovT, gate=rows[1], reduce=reduce)
 
-    return _NewtonRun(lookup, evaluate, init_pose, cfg, inner_iters, reg_pose, f32)
+    return lookup, evaluate
+
+
+def _fused_run(points, mask, regmap: RegMap, init_pose: Pose3, cfg: NewtonConfig, grid_shape: tuple,
+               inner_iters: int, reg_pose: Pose3 = None, src_cov=None, reduce=None, gicp: bool = False,
+               gicp_max_mahal: float = 9.0, newton_graph: NewtonGraph = None) -> _NewtonRun:
+    """One registration of ``newton_align_fused`` in float32, its outer
+    iterations replayed by ``newton_graph`` where that replays."""
+    f32 = torch.float32
+    points, mask = sanitize_points(points, mask)
+    ptsT = points.to(f32).t().contiguous()
+    scovT = None if src_cov is None else src_cov.reshape(-1, 9).t().contiguous().to(f32)
+    lookup, evaluate = _fused_ops(points, mask, ptsT, scovT, regmap, cfg, grid_shape, gicp, gicp_max_mahal,
+                                  reduce)
+    run = _NewtonRun(lookup, evaluate, init_pose, cfg, inner_iters, reg_pose, f32)
+    if newton_graph is not None and reduce is None and cuda_graph.replays(points.device):
+        run.advance = newton_graph.advance(points, mask, ptsT, scovT, run.budget, reg_pose, regmap, cfg,
+                                           grid_shape, inner_iters, gicp, gicp_max_mahal)
+    return run
+
+
+def _fused_outer(pose: Pose3, it, cfg: NewtonConfig, grid_shape: tuple, inner_iters: int, gicp: bool,
+                 gicp_max_mahal: float, points, mask, ptsT, scovT, budget, reg_pose: Pose3,
+                 regmap: RegMap) -> OuterState:
+    """One outer iteration of ``newton_align_fused`` as a function of
+    tensors (the pose and step count in, the loop state out): what
+    ``NewtonGraph`` captures."""
+    lookup, evaluate = _fused_ops(points, mask, ptsT, scovT, regmap, cfg, grid_shape, gicp, gicp_max_mahal)
+    return outer_step(lookup, evaluate, pose, it, cfg, inner_iters, reg_pose, budget)
+
+
+class NewtonGraph(cuda_graph.GraphRunner):
+    """``newton_align_fused``'s outer iteration replayed as one CUDA graph on
+    a CUDA device (``core.cuda_graph``), keyed by all the capture bakes in:
+    the whole ``NewtonConfig``, ``inner_iters``, N, ``grid_shape``, the
+    RegMap's row count, resolution and aux table, the cost (NDT, VGICP or,
+    with source covariances, plane-to-plane), whether a prior pose pulls,
+    the points' dtype and the device. The pose and step count are copied in at
+    every call; the registration's points, mask, transposed points, source
+    covariances, staleness budget, prior pose and RegMap once a
+    registration (sticky). ``newton_align_fused`` hands it the outer
+    iterations only where it replays."""
+
+    def __init__(self):
+        super().__init__(_fused_outer, "newton_graph_replay", LAUNCHES)
+
+    def advance(self, points, mask, ptsT, scovT, budget, reg_pose: Pose3, regmap: RegMap, cfg: NewtonConfig,
+                grid_shape: tuple, inner_iters: int, gicp: bool, gicp_max_mahal: float):
+        """``advance(pose, it)`` of one registration's ``_NewtonRun``."""
+        dev, grid_shape = points.device, tuple(grid_shape)
+        key = (cfg, inner_iters, points.shape[0], grid_shape, regmap.packed.shape[0], float(regmap.resolution),
+               regmap.packed_aux is not None, gicp, gicp_max_mahal, scovT is not None, reg_pose is not None,
+               points.dtype, dev)
+        sticky = (points, mask, ptsT, scovT, budget, reg_pose, regmap)
+        return lambda pose, it: self.run(key, dev, (pose, it, cfg, grid_shape, inner_iters, gicp, gicp_max_mahal),
+                                         sticky)

@@ -3,14 +3,17 @@ settings, the prior-pose penalty, the Newton loop and ``newton_align`` on
 the sorted-key objective.
 
 One loop serves every objective. ``_NewtonRun`` holds a registration's
-state on the device and advances it one outer iteration at a time: a
-``lookup`` at the current pose (the RegMap rows, or nothing for the
-sorted-key objective, which searches inside each evaluation) and up to
-``inner_iters`` Newton steps, each one ``evaluate``. ``drive`` runs the
-outer iterations; its exit test reads the iteration count and the
-convergence flag on the host, one device sync per outer iteration,
-counted in ``HOST_READS``. ``fused_math.newton_align_fused`` runs it on
-the RegMap pair kernels.
+state on the device and advances it one outer iteration at a time
+(``outer_step``, a function of tensors: the pose and the step count in,
+the loop state out): a ``lookup`` at the current pose (the RegMap rows, or
+nothing for the sorted-key objective, which searches inside each
+evaluation) and up to ``inner_iters`` Newton steps, each one ``evaluate``.
+``drive`` runs the outer iterations; its exit test reads the iteration
+count and the convergence flag on the host, packed in one small tensor,
+one device sync per outer iteration, counted in ``HOST_READS``.
+``fused_math.newton_align_fused`` runs it on the RegMap pair kernels, where
+``fused_math.NewtonGraph`` may replay each outer iteration as one CUDA
+graph.
 """
 from __future__ import annotations
 
@@ -85,18 +88,66 @@ def regularize_step(pose: Pose3, grad, hess, n_contrib, cfg: NewtonConfig, reg_p
     return grad - w * xi, hess - w * torch.eye(6, dtype=dtype, device=grad.device)
 
 
+class OuterState(NamedTuple):
+    """The loop state after an outer iteration, all on the device."""
+    pose: Pose3
+    it: torch.Tensor  # () int32 applied steps
+    conv: torch.Tensor  # () bool: the last applied step was shorter than trans_eps
+    obj: NdtObjective  # the last applied step's objective
+    read: torch.Tensor  # (2,) int32 [it, conv]: what the exit test reads
+
+
+def _newton_step(evaluate, pose: Pose3, looked_up, cfg: NewtonConfig, reg_pose: Pose3):
+    """One Newton step from ``pose``: (the retracted pose, the step's length,
+    the objective at ``pose``)."""
+    obj = evaluate(pose, looked_up)
+    grad, hess = regularize_step(pose, obj.grad, obj.hess, obj.n_contrib, cfg, reg_pose)
+    step = torch.linalg.solve_ex(hess, -grad)[0]
+    step = torch.where(torch.isfinite(step).all(), step, 0.0)
+    norm = torch.linalg.vector_norm(step)
+    scale = torch.where(norm > cfg.max_step_norm,
+                        cfg.max_step_norm / torch.clamp(norm, min=1e-30), 1.0)
+    step = (cfg.step_size * scale) * step
+    return se3.retract(pose, step.to(pose.trans.dtype)), torch.linalg.vector_norm(step), obj
+
+
+def outer_step(lookup, evaluate, pose: Pose3, it, cfg: NewtonConfig, inner_iters: int, reg_pose: Pose3,
+               budget) -> OuterState:
+    """One lookup at ``pose`` and up to ``inner_iters`` steps on it, after
+    ``it`` applied steps. Once the summed step length since the lookup
+    would pass ``budget`` (``cfg.gather_stale_frac * cfg.resolution``),
+    further inner steps freeze (their evaluations are discarded and they do
+    not count toward ``cfg.max_iterations``). No host sync."""
+    looked_up = lookup(pose)
+    pose, norm, obj = _newton_step(evaluate, pose, looked_up, cfg, reg_pose)
+    moved, applied = norm, torch.ones((), dtype=torch.int32, device=norm.device)
+    for _ in range(inner_iters - 1):
+        new_pose, stepn, obj2 = _newton_step(evaluate, pose, looked_up, cfg, reg_pose)
+        ok = moved + stepn <= budget
+        pose = se3.where(ok, new_pose, pose)
+        norm = torch.where(ok, stepn, norm)
+        obj = NdtObjective(*(torch.where(ok, n, o) for n, o in zip(obj2, obj)))
+        moved = torch.where(ok, moved + stepn, moved + budget)
+        applied = applied + ok.to(torch.int32)
+    it = it + applied
+    conv = norm < cfg.trans_eps
+    return OuterState(pose, it, conv, obj, torch.stack([it, conv.to(torch.int32)]))
+
+
 class _NewtonRun:
     """One registration, an outer iteration at a time: its pose, applied-step
     count ``it``, convergence flag ``conv`` and the last applied step's
     objective, all on the device. ``lookup(pose)`` returns what the
     evaluations of one outer iteration share; ``evaluate(pose, looked_up)``
-    returns an NdtObjective at ``pose``."""
+    returns an NdtObjective at ``pose``. ``advance(pose, it)`` is one outer
+    iteration (``outer_step`` on them, unless a caller puts a graph replay
+    of it in its place)."""
 
     def __init__(self, lookup, evaluate, init_pose: Pose3, cfg: NewtonConfig, inner_iters: int = 1,
                  reg_pose: Pose3 = None, dtype=torch.float32):
         dev = init_pose.trans.device
         self.lookup, self.evaluate = lookup, evaluate
-        self.cfg, self.inner_iters, self.reg_pose = cfg, inner_iters, reg_pose
+        self.cfg = cfg
         self.budget = torch.full((), cfg.gather_stale_frac * cfg.resolution, dtype=dtype, device=dev)
         self.pose = se3.cast(init_pose, dtype)
         self.it = torch.zeros((), dtype=torch.int32, device=dev)
@@ -105,48 +156,22 @@ class _NewtonRun:
                                 torch.zeros(6, dtype=dtype, device=dev),
                                 torch.zeros((6, 6), dtype=dtype, device=dev),
                                 torch.zeros((), dtype=torch.int32, device=dev))
-
-    def one_step(self, pose, looked_up):
-        cfg = self.cfg
-        obj = self.evaluate(pose, looked_up)
-        grad, hess = regularize_step(pose, obj.grad, obj.hess, obj.n_contrib, cfg, self.reg_pose)
-        step = torch.linalg.solve_ex(hess, -grad)[0]
-        step = torch.where(torch.isfinite(step).all(), step, 0.0)
-        norm = torch.linalg.vector_norm(step)
-        scale = torch.where(norm > cfg.max_step_norm,
-                            cfg.max_step_norm / torch.clamp(norm, min=1e-30), 1.0)
-        step = (cfg.step_size * scale) * step
-        return se3.retract(pose, step.to(pose.trans.dtype)), torch.linalg.vector_norm(step), obj
+        self.read = None  # (2,) [it, conv] after the first outer iteration
+        self.advance = lambda pose, it: outer_step(lookup, evaluate, pose, it, cfg, inner_iters, reg_pose,
+                                                   self.budget)
 
     def outer_iteration(self):
-        """One lookup and up to ``inner_iters`` steps on it. Once the summed
-        step length since the lookup would pass ``cfg.gather_stale_frac *
-        cfg.resolution``, further inner steps freeze (their evaluations are
-        discarded and they do not count toward ``cfg.max_iterations``)."""
-        looked_up = self.lookup(self.pose)
-        pose, norm, obj = self.one_step(self.pose, looked_up)
-        moved, applied = norm, torch.ones((), dtype=torch.int32, device=norm.device)
-        for _ in range(self.inner_iters - 1):
-            new_pose, stepn, obj2 = self.one_step(pose, looked_up)
-            ok = moved + stepn <= self.budget
-            pose = se3.where(ok, new_pose, pose)
-            norm = torch.where(ok, stepn, norm)
-            obj = NdtObjective(*(torch.where(ok, n, o) for n, o in zip(obj2, obj)))
-            moved = torch.where(ok, moved + stepn, moved + self.budget)
-            applied = applied + ok.to(torch.int32)
-        self.pose, self.obj = pose, obj
-        self.it = self.it + applied
-        self.conv = norm < self.cfg.trans_eps
+        self.pose, self.it, self.conv, self.obj, self.read = self.advance(self.pose, self.it)
 
     def result(self, final_eval: bool) -> NewtonResult:
         obj = self.evaluate(self.pose, self.lookup(self.pose)) if final_eval else self.obj
         return NewtonResult(self.pose, obj.hess, obj.score, self.it, self.conv, obj.n_contrib)
 
 
-def _read_state(it, conv):
+def _read_state(run: _NewtonRun):
     """(iterations, converged) on the host: one device sync."""
     HOST_READS["newton"] += 1
-    it_h, conv_h = torch.stack([it, conv.to(torch.int32)]).tolist()
+    it_h, conv_h = run.read.tolist()
     return it_h, bool(conv_h)
 
 
@@ -159,7 +184,7 @@ def drive(run: _NewtonRun, final_eval: bool) -> NewtonResult:
     it_h, conv_h = 0, False
     while it_h < run.cfg.max_iterations and not conv_h:
         run.outer_iteration()
-        it_h, conv_h = _read_state(run.it, run.conv)
+        it_h, conv_h = _read_state(run)
     return run.result(final_eval)
 
 
